@@ -18,9 +18,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      algorithms) and the ``"torch"`` backend on the same engine;
   5. the kernel against its plain PyTorch version, byte for byte, on seeded
      random packed batches (k = 1..4 x slca/elca/ca, all-pad rows,
-     single-element lists, R up to 64) and on every packed round of the main
-     path, with CUDA-event times, the plain version's times and the
-     bytes bound;
+     single-element lists, R up to 64) and on every batch the counted main
+     path launched (engine and service alike, kept as they were packed),
+     with CUDA-event times of each batch and of one pass of them all, the
+     plain version's times and the bound;
   6. a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
      line ``{"ok": true, "device": {...}}``.
 
@@ -169,24 +170,38 @@ def kernel_device_ms(dev: dict[str, float]) -> float:
     return sum(ms for name, ms in dev.items() if any(p in name for p in passes))
 
 
+# the packed inputs each semantics reads: SLCA needs no NDesc, CA no parents
+READS = {
+    "slca": ("ids0", "pid0", "n0", "other_ids"),
+    "elca": ("ids0", "pid0", "ndesc0", "n0", "other_ids", "other_ndesc"),
+    "ca": ("ids0", "n0", "other_ids"),
+}
+
+
 def bound_of(batch: dict, semantics: str) -> tuple[float, str, int, int]:
     """Least time for the function on this batch: (ms, bound_by, bytes, ops).
 
-    Bytes: every packed input read once, keep_ids (4 B) and keep_mask (1 B)
-    written once.  Operations: per L0 slot, one binary search of each other
-    list and one of L0 for the parent, plus the keep rule (32-bit integer
-    compares and adds, counted against the card's 32-bit scalar rate).
+    Bytes: each input the semantics reads (``READS``) read once, keep_ids
+    (4 B) and keep_mask (1 B) written once.  Operations, counted on this
+    batch's data: one binary search of each other list per valid L0 entry,
+    then for SLCA/ELCA one binary search of L0 per CA for its parent and
+    one add per CA and list, plus one compare per slot for the keep rule
+    (32-bit integer work against the card's 32-bit scalar rate).
     """
+    from repro_torch.kernels.fused_search import fused_search_batch_plain
+
     rows, m0 = batch["ids0"].shape
     k1, mo = batch["other_ids"].shape[1], batch["other_ids"].shape[2]
-    in_bytes = sum(
-        t.numel() * t.element_size() for n, t in batch.items() if n != "other_n"
-    )
-    n_bytes = in_bytes + rows * m0 * 5
-    per_slot = k1 * (math.ceil(math.log2(mo)) + 1) if k1 else 0
+    n_bytes = sum(
+        batch[n].numel() * batch[n].element_size() for n in READS[semantics]
+    ) + rows * m0 * 5
+    n_valid = int(batch["n0"].sum())
+    n_ops = n_valid * k1 * (math.ceil(math.log2(mo)) + 1) + rows * m0
     if semantics != "ca":
-        per_slot += math.ceil(math.log2(m0)) + 1 + (k1 + 1)
-    n_ops = rows * m0 * (per_slot + k1 + 2)
+        plain = {n: t for n, t in batch.items() if n != "other_n"}
+        n_ca = int(fused_search_batch_plain(**plain, semantics="ca")[1].sum())
+        adds = 1 if semantics == "slca" else k1 + 1
+        n_ops += n_ca * (math.ceil(math.log2(m0)) + 1 + adds)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
     if t_bytes >= t_ops:
@@ -194,7 +209,12 @@ def bound_of(batch: dict, semantics: str) -> tuple[float, str, int, int]:
     return t_ops, "operations", n_bytes, n_ops
 
 
-def check_kernel(batch: dict, semantics: str, timed: bool) -> dict:
+def plain_of(batch: dict) -> dict:
+    """The packed batch without ``other_n``, which the plain version lacks."""
+    return {n: t for n, t in batch.items() if n != "other_n"}
+
+
+def check_kernel(batch: dict, semantics: str) -> dict:
     """Kernel == plain on one packed batch (raises otherwise); times both."""
     import torch
 
@@ -203,7 +223,7 @@ def check_kernel(batch: dict, semantics: str, timed: bool) -> dict:
         fused_search_batch_plain,
     )
 
-    plain_args = {n: t for n, t in batch.items() if n != "other_n"}
+    plain_args = plain_of(batch)
     ids, mask = fused_search_batch(**batch, semantics=semantics)
     want_ids, want_mask = fused_search_batch_plain(**plain_args, semantics=semantics)
     torch.cuda.synchronize()
@@ -218,15 +238,14 @@ def check_kernel(batch: dict, semantics: str, timed: bool) -> dict:
         "semantics": semantics, "max_abs_err": err,
         "kept": int(mask.sum()),
     }
-    if timed:
-        bound_ms, bound_by, n_bytes, n_ops = bound_of(batch, semantics)
-        rec.update(
-            ms=cuda_ms(lambda: fused_search_batch(**batch, semantics=semantics)),
-            plain_ms=cuda_ms(
-                lambda: fused_search_batch_plain(**plain_args, semantics=semantics)
-            ),
-            bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes, ops=n_ops,
-        )
+    bound_ms, bound_by, n_bytes, n_ops = bound_of(batch, semantics)
+    rec.update(
+        ms=cuda_ms(lambda: fused_search_batch(**batch, semantics=semantics)),
+        plain_ms=cuda_ms(
+            lambda: fused_search_batch_plain(**plain_args, semantics=semantics)
+        ),
+        bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes, ops=n_ops,
+    )
     return rec
 
 
@@ -246,12 +265,48 @@ def query_matrix():
     ]
 
 
-def run_engine(engine, backend: str) -> tuple[dict, list[float]]:
+class Recorder:
+    """Keeps every batch a PlanCache packs for the fused kernel, labelled.
+
+    Inside ``with Recorder() as rec`` every PlanCache (the engine's, the
+    tree path's per-query one, the service's drain) hands its fused batches
+    to ``rec.rounds`` as ``(rec.label, batch, semantics)``; the batches stay
+    the device tensors the kernel was launched on.
+    """
+
+    def __init__(self):
+        self.label = ""
+        self.rounds: list[tuple[str, dict, str]] = []
+
+    def __enter__(self):
+        from repro_torch.core.plan_cache import PlanCache
+
+        self._pack = PlanCache.pack
+        rec = self
+
+        def pack(plan, per_item, keys, semantics="slca", backend="torch"):
+            out = rec._pack(plan, per_item, keys, semantics, backend)
+            if out[0] is not None and backend == "fused":
+                rec.rounds.append((rec.label, out[0], semantics))
+            return out
+
+        PlanCache.pack = pack
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.plan_cache import PlanCache
+
+        PlanCache.pack = self._pack
+
+
+def run_engine(engine, backend: str, rec: Recorder | None = None):
     """Every (query, semantics, index) through engine.query; ids + ms each."""
     from repro_torch.api import Query
 
     out, lat = {}, []
     for name, words, sem, index in query_matrix():
+        if rec is not None:
+            rec.label = f"{name} {sem} {index}"
         t0 = time.perf_counter()
         res = engine.query(Query(words, sem, index, backend))
         lat.append((time.perf_counter() - t0) * 1e3)
@@ -285,37 +340,9 @@ def assert_equal(got: dict, want: dict, what: str) -> None:
             )
 
 
-def recorded_rounds(engine) -> list[tuple[str, dict, str]]:
-    """Every packed round the main path's fused queries launch, re-packed.
-
-    The DAG queries run again through a PlanCache that keeps each batch it
-    packs; the tree queries pack their one work item.  These launches come
-    after the main path's launch count was read.
-    """
-    from repro_torch.core.plan_cache import PlanCache
-    from repro_torch.core.search_dag import dag_search_vec
-
-    class RecordingPlanCache(PlanCache):
-        def __init__(self):
-            super().__init__(backend="fused", device=DEVICE)
-            self.batches = []
-
-        def pack(self, per_item, keys, semantics="slca", backend="fused"):
-            batch, kept, sig = super().pack(per_item, keys, semantics, backend)
-            if batch is not None:
-                self.batches.append((batch, semantics))
-            return batch, kept, sig
-
-    rounds = []
-    for name, words, sem, index in query_matrix():
-        kws = engine.keyword_ids(list(words))
-        plan = RecordingPlanCache()
-        if index == "dag":
-            dag_search_vec(engine.cluster, kws, sem, backend="fused", plan=plan)
-        else:
-            plan.run([engine.base.idlists(kws)], [0], sem, backend="fused")
-        rounds += [(f"{name} {sem} {index}", b, s) for b, s in plan.batches]
-    return rounds
+def pass_ms(calls) -> float:
+    """Median ms of one pass of ``calls`` between one pair of CUDA events."""
+    return cuda_ms(lambda: [call() for call in calls])
 
 
 def main() -> int:
@@ -365,12 +392,19 @@ def main() -> int:
     torch.cuda.synchronize()
     fallbacks0 = engine.plan_cache.fused_fallbacks
     fused_search.LAUNCHES = 0
-    fused, fused_lat = run_engine(engine, "fused")
-    served, svc_stats = run_service(engine)
+    with Recorder() as recorder:
+        fused, fused_lat = run_engine(engine, "fused", recorder)
+        recorder.label = "service window"
+        served, svc_stats = run_service(engine)
     torch.cuda.synchronize()
     main_launches = fused_search.LAUNCHES
     if main_launches <= 0:
         raise AssertionError("the main path launched no fused_search kernel")
+    rounds = recorder.rounds
+    if len(rounds) != main_launches:
+        raise AssertionError(
+            f"{main_launches} launches but {len(rounds)} fused batches packed"
+        )
     if engine.plan_cache.fused_fallbacks != fallbacks0 or fallbacks0 != 0:
         raise AssertionError("a fused launch was demoted")
     print(
@@ -428,48 +462,48 @@ def main() -> int:
     for label, items, sem, min_rows in random_batches():
         plan = PlanCache(backend="fused", min_rows=min_rows, device=DEVICE)
         batch, _, _ = plan.pack(items, list(range(len(items))), sem, "fused")
-        rec = check_kernel(batch, sem, timed=True)
-        rec["case"] = label
-        random_recs.append(rec)
+        r = check_kernel(batch, sem)
+        r["case"] = label
+        random_recs.append(r)
         print(
-            f"kernel==plain {label}: R={rec['rows']} k={rec['k']} m0={rec['m0']} "
-            f"mo={rec['mo']} kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms "
-            f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})"
+            f"kernel==plain {label}: R={r['rows']} k={r['k']} m0={r['m0']} "
+            f"mo={r['mo']} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
+            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
         )
-    rounds = recorded_rounds(engine)
     round_recs = []
-    seen: dict[tuple, dict] = {}
     for label, batch, sem in rounds:
-        sig = (label.split()[1], sem) + tuple(
-            tuple(t.shape) for t in batch.values()
+        r = check_kernel(batch, sem)
+        r["query"] = label
+        round_recs.append(r)
+        print(
+            f"kernel==plain round {label}: R={r['rows']} k={r['k']} "
+            f"m0={r['m0']} mo={r['mo']} kernel {r['ms']:.4f} ms plain "
+            f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})"
         )
-        # identical shapes of one query's rounds are timed once, checked always
-        timed = sig not in seen
-        rec = check_kernel(batch, sem, timed=timed)
-        if not timed:
-            rec.update({k: seen[sig][k] for k in ("ms", "plain_ms", "bound_ms",
-                                                 "bound_by", "bytes", "ops")})
-            rec["timed_as"] = seen[sig]["query"]
-        else:
-            seen[sig] = dict(rec, query=label)
-            print(
-                f"kernel==plain round {label}: R={rec['rows']} k={rec['k']} "
-                f"m0={rec['m0']} mo={rec['mo']} kernel {rec['ms']:.4f} ms plain "
-                f"{rec['plain_ms']:.4f} ms bound {rec['bound_ms']:.5f} ms "
-                f"({rec['bound_by']})"
+    tot = {
+        "ms": pass_ms([
+            lambda b=b, s=s: fused_search.fused_search_batch(**b, semantics=s)
+            for _l, b, s in rounds
+        ]),
+        "plain_ms": pass_ms([
+            lambda b=plain_of(b), s=s: fused_search.fused_search_batch_plain(
+                **b, semantics=s
             )
-        rec["query"] = label
-        round_recs.append(rec)
-    tot = {k: sum(r[k] for r in round_recs) for k in ("ms", "plain_ms", "bound_ms")}
+            for _l, b, s in rounds
+        ]),
+        "bound_ms": sum(r["bound_ms"] for r in round_recs),
+    }
     _, dev = profile_pass(lambda: [
         fused_search.fused_search_batch(**b, semantics=s) for _l, b, s in rounds
     ])
     device_ms = kernel_device_ms(dev) if dev else None
-    big = max(round_recs, key=lambda r: r["ms"])
+    big = max(round_recs, key=lambda r: r["bytes"])
     print(
         f"kernel==plain on all {len(round_recs)} main-path rounds; one pass of "
-        f"them: kernel {tot['ms']:.4f} ms plain {tot['plain_ms']:.4f} ms bound "
-        f"{tot['bound_ms']:.5f} ms; largest round {big['query']} R={big['rows']} "
+        f"them (CUDA events, median of {TIMING_REPS}): kernel {tot['ms']:.4f} ms "
+        f"plain {tot['plain_ms']:.4f} ms bound "
+        f"{tot['bound_ms']:.5f} ms; largest batch {big['query']} R={big['rows']} "
         f"k={big['k']} m0={big['m0']} mo={big['mo']} kernel {big['ms']:.4f} ms "
         f"plain {big['plain_ms']:.4f} ms bound {big['bound_ms']:.5f} ms"
     )

@@ -224,22 +224,20 @@ class PlanCache:
                 },
             })
             w1 = time.time() * 1e3
-        if backend == "fused":
-            kstats: dict | None = {}
-            ids, mask = fused_search_batch(**batch, semantics=semantics, stats=kstats)
+        fused = backend == "fused"
+        if fused:
+            ids, mask = fused_search_batch(**batch, semantics=semantics)
         else:
-            kstats = None
             ids, mask = ca_search_batch(**batch, semantics=semantics, backend=backend)
         # the device-to-host copy is the round's only synchronisation
         ids = ids.cpu().numpy()
         mask = mask.cpu().numpy()
         if phases is not None:
             attrs = {"backend": backend, "semantics": semantics, "rows": sig.rows}
-            if kstats is not None:
-                attrs.update(kstats)
+            if fused:
+                attrs.update(k=sig.k, m0=sig.m0, mo=sig.mo)
             phases.append({
-                "name": "kernel.fused_round" if kstats is not None
-                else "kernel.ca_search",
+                "name": "kernel.fused_round" if fused else "kernel.ca_search",
                 "t0_ms": w1, "dur_ms": (time.perf_counter() - p1) * 1e3,
                 "attrs": attrs,
             })

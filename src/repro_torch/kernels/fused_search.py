@@ -32,9 +32,20 @@ from .shapes import INT_PAD
 
 _SEMANTICS = {"slca": 0, "elca": 1, "ca": 2}
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fused_search.cu"
-_REPO_ROOT = Path(__file__).resolve().parents[3]
-BUILD_DIR = _REPO_ROOT / "build" / "repro_torch_kernels"
+_PACKAGE = Path(__file__).resolve().parent.parent
+_SOURCE = _PACKAGE / "csrc" / "fused_search.cu"
+
+
+def _build_dir() -> Path:
+    """``build/repro_torch_kernels`` in a source checkout (``src/`` beside
+    ``build/``); for an installed package, the user's cache directory."""
+    if _PACKAGE.parent.name == "src":
+        return _PACKAGE.parents[1] / "build" / "repro_torch_kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "repro_torch_kernels"
+
+
+BUILD_DIR = _build_dir()
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -195,10 +206,10 @@ def fused_search_batch(
     other_ids: torch.Tensor,  # [R, k-1, mo] int32 ascending rows, INT_PAD tail
     other_ndesc: torch.Tensor,  # [R, k-1, mo] int32 (0 pad)
     n0: torch.Tensor,  # [R] int32 valid lengths of L0
-    other_n: torch.Tensor | None = None,  # [R, k-1] (unused: pads self-mask)
+    other_n: torch.Tensor | None = None,  # [R, k-1]: part of a packed batch;
+    # not read, since INT_PAD tails keep each row sorted and i < n0 masks pads
     *,
     semantics: str = "slca",
-    stats: dict | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One fused search over a PlanCache-packed batch.
 
@@ -212,8 +223,6 @@ def fused_search_batch(
     _check(ids0, pid0, ndesc0, other_ids, other_ndesc, n0)
     rows, m0 = ids0.shape
     k1, mo = other_ids.shape[1], other_ids.shape[2]
-    if stats is not None:
-        stats.update(rows=int(rows), k=int(k1 + 1), m0=int(m0), mo=int(mo))
     if ids0.device.type == "cpu":
         return fused_search_batch_plain(
             ids0, pid0, ndesc0, other_ids, other_ndesc, n0, semantics

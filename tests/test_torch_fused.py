@@ -142,3 +142,23 @@ def test_fused_rejects_bad_inputs():
     with pytest.raises(ValueError, match="semantics"):
         fused_search_batch(**t, semantics="lca")
 
+
+
+def test_fused_round_phase_attrs_carry_the_plan_key():
+    rng = np.random.default_rng(8)
+    items = to_port(random_items(rng, 3, 3))
+    phases: list = []
+    PlanCache(backend="fused", device="cpu").run(
+        items, [0, 1, 2], "elca", backend="fused", phases=phases
+    )
+    pack, launch = phases
+    assert [pack["name"], launch["name"]] == ["plan.pack", "kernel.fused_round"]
+    for key in ("rows", "k", "m0", "mo"):
+        assert launch["attrs"][key] == pack["attrs"][key]
+    assert launch["attrs"]["semantics"] == "elca"
+
+
+def test_kernel_builds_under_the_checkout():
+    root = fused_search._SOURCE.parents[3]
+    assert (root / "src" / "repro_torch" / "csrc" / "fused_search.cu").exists()
+    assert fused_search.BUILD_DIR == root / "build" / "repro_torch_kernels"
