@@ -36,8 +36,9 @@ SEMANTICS = ("slca", "elca")
 INDEXES = ("tree", "dag")
 # user-facing backend names: "scalar" runs the paper's host algorithms,
 # "torch" the vectorized search in plain PyTorch, "fused" the hand-written
-# CUDA kernel (membership + intersect + SLCA/ELCA in one launch).
-BACKENDS = ("scalar", "torch", "fused")
+# CUDA kernel (membership + intersect + SLCA/ELCA in one launch), "chained"
+# one hand-written CUDA kernel per phase (membership, then ELCA child sums).
+BACKENDS = ("scalar", "torch", "fused", "chained")
 
 
 def resolve_device(device: str | torch.device) -> torch.device:

@@ -5,8 +5,9 @@
 
 ``index``    "tree" (Zhou et al. baseline) or "dag" (the paper's IDCluster)
 ``backend``  "scalar" (paper-faithful host algorithms), "torch" (vectorized
-             PyTorch), or "fused" (one hand-written CUDA kernel from
-             membership to ELCA per batched round)
+             PyTorch), "fused" (one hand-written CUDA kernel from
+             membership to ELCA per batched round), or "chained" (one
+             hand-written CUDA kernel per phase, one query or RC per call)
 ``algorithm`` scalar backend only: fwd/bwd × slca/elca variant selection.
 ``device``   where the vectorized backends run: "cuda" unless the caller
              names the CPU; a CUDA device on a host without CUDA raises.
@@ -339,6 +340,12 @@ class KeywordSearchEngine:
                 return fn(self.base.idlists(kws)).astype(np.int64)
             if backend == "fused":
                 return fused_search.run_query_fused(
+                    self.base.idlists(kws), semantics=semantics, device=self.device
+                )
+            if backend == "chained":
+                from repro_torch.kernels import ops  # lazy: avoid cycle
+
+                return ops.run_query_chained(
                     self.base.idlists(kws), semantics=semantics, device=self.device
                 )
             return search_vec.run_query(

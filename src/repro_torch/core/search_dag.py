@@ -9,6 +9,8 @@ RCPM offsets is host-side numpy (data movement, not compute).
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 
 from .components import IDClusterIndex
@@ -40,22 +42,44 @@ def dag_search_vec(
     """Frontier-batched DAG search; returns sorted original node ids.
 
     ``phases`` (traced queries only) collects per-phase timing dicts from
-    the plan cache's pack/launch steps.
+    the plan cache's pack/launch steps, and from the per-RC chained loop,
+    which runs outside the plan cache (on the plan's device).
     """
     plan = _plan_or_default(plan)
     launches0 = plan.launches
+    chained_launches = 0
     memo: dict[int, np.ndarray] = {}
     frontier = [0]
     rounds = 0
     while frontier:
         rounds += 1
-        results = plan.run(
-            [index.idlists(rc, kws) for rc in frontier],
-            frontier,
-            semantics=semantics,
-            backend=backend,
-            phases=phases,
-        )
+        if backend == "chained":
+            from repro_torch.kernels import ops  # lazy: avoid cycle
+
+            if phases is not None:
+                w0, p0 = time.time() * 1e3, time.perf_counter()
+            results = {
+                rc: ops.run_query_chained(
+                    index.idlists(rc, kws), semantics=semantics, device=plan.device
+                )
+                for rc in frontier
+            }
+            chained_launches += len(frontier)
+            if phases is not None:
+                phases.append({
+                    "name": "kernel.chained_round",
+                    "t0_ms": w0,
+                    "dur_ms": (time.perf_counter() - p0) * 1e3,
+                    "attrs": {"rcs": len(frontier), "round": rounds},
+                })
+        else:
+            results = plan.run(
+                [index.idlists(rc, kws) for rc in frontier],
+                frontier,
+                semantics=semantics,
+                backend=backend,
+                phases=phases,
+            )
         nxt: list[int] = []
         for rc in frontier:
             res = results[rc]
@@ -71,8 +95,11 @@ def dag_search_vec(
     if stats is not None:
         stats["rounds"] = rounds
         stats["rcs_searched"] = len(memo)
-        stats.update(plan.snapshot())  # lifetime counters (plan_* keys)
-        stats["launches"] = plan.launches - launches0  # this call only
+        if backend == "chained":  # chained calls run per RC, outside the cache
+            stats["launches"] = chained_launches
+        else:
+            stats.update(plan.snapshot())  # lifetime counters (plan_* keys)
+            stats["launches"] = plan.launches - launches0  # this call only
     return _splice(index, memo, semantics)
 
 
@@ -94,10 +121,12 @@ def dag_search_vec_multi(
     is per query (different keyword sets ⇒ different RC results).
 
     ``backend`` picks the device path *inside* the shared batch search:
-    "torch" runs ``search_vec.ca_search_batch``; "fused" hands the whole
-    packed batch to the hand-written CUDA kernel
-    (:mod:`repro_torch.kernels.fused_search`).  Either way every launch flows
-    through the PlanCache, whose plan keys carry the backend name.
+    "torch" runs ``search_vec.ca_search_batch``; "chained" runs it with the
+    searchsorted kernel as its membership step (registered by importing
+    :mod:`repro_torch.kernels.ops`); "fused" hands the whole packed batch to
+    the hand-written CUDA kernel (:mod:`repro_torch.kernels.fused_search`).
+    Either way every launch flows through the PlanCache, whose plan keys
+    carry the backend name.
     """
     plan = _plan_or_default(plan)
     launches0 = plan.launches

@@ -33,32 +33,13 @@
 // synchronise, and returns the first cudaError_t seen (0 on success).  The
 // scratch it is given (ca, ndo, cnt, sums) needs no initialisation.
 
-#include <cuda_runtime.h>
+#include "search.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxGridY = 65535;
-constexpr int kIntPad = 0x7fffffff;
 constexpr int kSlca = 0;
 constexpr int kElca = 1;
 constexpr int kCa = 2;
-
-// First position in row[0, n) whose value is >= key (n when there is none).
-__device__ __forceinline__ int lower_bound(const int* __restrict__ row, int n,
-                                           int key) {
-  int lo = 0;
-  int hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(row + mid) < key) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
 
 // Pass 1: membership of each L0 entry in the k-1 other lists (their INT_PAD
 // tails keep every row sorted; a real id never equals INT_PAD), plus the
@@ -177,8 +158,7 @@ extern "C" int fused_search_launch(
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 block(kThreads);
-  const dim3 grid((m0 + kThreads - 1) / kThreads,
-                  rows < kMaxGridY ? rows : kMaxGridY);
+  const dim3 grid(blocks_for(m0), rows < kMaxGridY ? rows : kMaxGridY);
   const int elca = semantics == kElca;
 
   membership_kernel<<<grid, block, 0, s>>>(ids0, n0, other_ids, other_nd, rows,

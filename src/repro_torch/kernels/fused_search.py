@@ -18,101 +18,26 @@ every ``m0`` bucket the PlanCache produces runs here.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from ._build import BUILD_DIR, CSRC, launch  # noqa: F401  (BUILD_DIR re-exported)
 from .shapes import INT_PAD
 
 _SEMANTICS = {"slca": 0, "elca": 1, "ca": 2}
 
-_PACKAGE = Path(__file__).resolve().parent.parent
-_SOURCE = _PACKAGE / "csrc" / "fused_search.cu"
-
-
-def _build_dir() -> Path:
-    """``build/repro_torch_kernels`` in a source checkout (``src/`` beside
-    ``build/``); for an installed package, the user's cache directory."""
-    if _PACKAGE.parent.name == "src":
-        return _PACKAGE.parents[1] / "build" / "repro_torch_kernels"
-    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
-    return Path(cache) / "repro_torch_kernels"
-
-
-BUILD_DIR = _build_dir()
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+_SOURCE = CSRC / "fused_search.cu"
+_FUNCTIONS = {
+    "fused_search_launch": (
+        [ctypes.c_void_p] * 6  # ids0 pid0 nd0 other_ids other_nd n0
+        + [ctypes.c_int] * 5  # rows m0 k1 mo semantics
+        + [ctypes.c_void_p] * 6  # keep_ids keep_mask ca ndo cnt sums
+        + [ctypes.c_void_p]  # stream
+    ),
+}
 
 LAUNCHES = 0  # kernel launches in this process (see module docstring)
-
-_LIB: ctypes.CDLL | None = None
-_LIB_LOCK = threading.Lock()
-
-
-# --------------------------------------------------------------------------- #
-# Build + bind
-# --------------------------------------------------------------------------- #
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    raise RuntimeError("nvcc not found: the fused search kernel cannot be built")
-
-
-def build() -> Path:
-    """Compile ``csrc/fused_search.cu`` once per source hash; return the .so.
-
-    The library is named by a hash of the source and the flags, written to
-    a temporary name and renamed into place, so concurrent builders never
-    load a half-written file.
-    """
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libfused_search-{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{out.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return out
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.fused_search_launch
-            fn.argtypes = (
-                [ctypes.c_void_p] * 6  # ids0 pid0 nd0 other_ids other_nd n0
-                + [ctypes.c_int] * 5  # rows m0 k1 mo semantics
-                + [ctypes.c_void_p] * 6  # keep_ids keep_mask ca ndo cnt sums
-                + [ctypes.c_void_p]  # stream
-            )
-            fn.restype = ctypes.c_int
-            _LIB = lib
-        return _LIB
 
 
 # --------------------------------------------------------------------------- #
@@ -229,29 +154,23 @@ def fused_search_batch(
         )
     if ids0.device.type != "cuda":
         raise ValueError(f"fused_search_batch runs on cpu or cuda, not {ids0.device}")
-    lib = _lib()
     dev = ids0.device
     elca = semantics == "elca"
-    with torch.cuda.device(dev):
-        keep_ids = torch.empty((rows, m0), dtype=torch.int32, device=dev)
-        keep_mask = torch.empty((rows, m0), dtype=torch.bool, device=dev)
-        # scratch, one buffer of [R, m0] planes, initialised by the kernel:
-        # CA mask, CA-child count, and for ELCA the k-1 gathered other-list
-        # NDesc rows and the k parent sums
-        planes = 2 + (2 * k1 + 1 if elca else 0)
-        scratch = torch.empty((planes, rows * m0), dtype=torch.int32, device=dev)
-        ca, cnt, ndo = scratch[0], scratch[1], scratch[2:]
-        sums = scratch[2 + k1 :] if elca else scratch[2:]
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_search_launch(
-            ids0.data_ptr(), pid0.data_ptr(), ndesc0.data_ptr(),
-            other_ids.data_ptr(), other_ndesc.data_ptr(), n0.data_ptr(),
-            rows, m0, k1, mo, _SEMANTICS[semantics],
-            keep_ids.data_ptr(), keep_mask.data_ptr(), ca.data_ptr(),
-            ndo.data_ptr(), cnt.data_ptr(), sums.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fused_search kernel launch failed: cudaError {err}")
+    keep_ids = torch.empty((rows, m0), dtype=torch.int32, device=dev)
+    keep_mask = torch.empty((rows, m0), dtype=torch.bool, device=dev)
+    # scratch, one buffer of [R, m0] planes, initialised by the kernel:
+    # CA mask, CA-child count, and for ELCA the k-1 gathered other-list
+    # NDesc rows and the k parent sums
+    planes = 2 + (2 * k1 + 1 if elca else 0)
+    scratch = torch.empty((planes, rows * m0), dtype=torch.int32, device=dev)
+    ca, cnt, ndo = scratch[0], scratch[1], scratch[2:]
+    sums = scratch[2 + k1 :] if elca else scratch[2:]
+    launch(
+        _SOURCE, _FUNCTIONS, "fused_search_launch", dev,
+        ids0, pid0, ndesc0, other_ids, other_ndesc, n0,
+        rows, m0, k1, mo, _SEMANTICS[semantics],
+        keep_ids, keep_mask, ca, ndo, cnt, sums,
+    )
     LAUNCHES += 1
     return keep_ids, keep_mask
 

@@ -17,9 +17,10 @@ Thread model: one daemon drain thread per service.  The engine itself is
 only touched from the drain thread, so no engine-level locking is needed.
 
 ``backend`` picks how a window is drained: "torch" (default) runs the
-batched vectorized DAG search through the engine's PlanCache, "fused" sends
-each drained window through the hand-written CUDA kernel (one launch per
-frontier round), "scalar" runs the paper-faithful host algorithms
+batched vectorized DAG search through the engine's PlanCache, "chained"
+runs the same search with the searchsorted kernel as its membership step,
+"fused" sends each drained window through the hand-written CUDA kernel (one
+launch per frontier round), "scalar" runs the paper-faithful host algorithms
 query-by-query.  Device work is launched from the drain thread, on that
 thread's current CUDA stream.
 
@@ -57,13 +58,16 @@ from repro_torch.obs import TRACER, SlowQueryLog, emit_phases, parse_traceparent
 # wire header so GET /debug/slow covers process/remote shards too
 DEFAULT_SLOW_LOG_MS = float(os.environ.get("XKS_SLOW_LOG_MS", "25.0"))
 
-# drain backends: how one admission window reaches the index.  "torch" runs
-# the batched vectorized search through the engine's PlanCache (the backend
-# name is part of each plan key), "fused" hands each packed window to the
-# CUDA kernel (one launch from membership to ELCA — the whole drained batch
-# goes down intact), "scalar" runs the paper-faithful host algorithms per
+# drain backends: how one admission window reaches the index.  "torch" and
+# "chained" run the batched vectorized search through the engine's PlanCache
+# (the backend name is part of each plan key; "chained" swaps the membership
+# step for the searchsorted kernel inside the same search), "fused" hands
+# each packed window to the CUDA kernel (one launch from membership to ELCA —
+# the whole drained batch goes down intact), "scalar" runs the paper-faithful host algorithms per
 # query (no batching, no device).
-_BACKENDS = {"scalar": None, "torch": "torch", "fused": "fused"}
+_BACKENDS = {
+    "scalar": None, "torch": "torch", "chained": "chained", "fused": "fused",
+}
 
 
 @dataclass
@@ -100,6 +104,10 @@ class QueryService:
             raise ValueError(
                 f"backend must be one of {sorted(_BACKENDS)}, got {backend!r}"
             )
+        if backend == "chained":
+            # importing the kernel ops registers the "chained" membership
+            # backend with search_vec; without it the first drain would fail
+            from repro_torch.kernels import ops  # noqa: F401
         self.engine = engine
         self.backend = backend
         self.max_batch = int(max_batch)

@@ -1,0 +1,285 @@
+"""Port's chained kernels and query path == the reference's Pallas ones.
+
+On the CPU each port kernel wrapper runs its plain PyTorch version; the
+reference runs its Pallas kernel the way its own tests do (interpret mode).
+Both get the same seeded numpy inputs; outputs are integers and must be
+equal with no tolerance.  The port's ``ref.py`` oracles and ``brute`` are
+held against the reference's too.  The CUDA kernels themselves are held
+against their plain versions in ``test_torch_chained_cuda.py``; the engine
+and service routes in ``test_torch_chained_engine.py``.
+"""
+import numpy as np
+import pytest
+import torch
+from test_fused import keyword_list, preorder_tree, random_items
+
+from repro.core import NodeSpec, build_tree
+from repro.core import brute as ref_brute
+from repro.core.plan_cache import PlanCache as RefPlanCache
+from repro.core.search_vec import ca_search_batch as ref_ca_search_batch
+from repro.data import QUERIES
+from repro.data import generate_discogs_tree as ref_generate
+from repro.kernels import ops as ref_ops
+from repro_torch.core import brute
+from repro_torch.core.idlist import IDList
+from repro_torch.core.search_vec import ca_search_batch
+from repro_torch.data import generate_discogs_tree
+from repro_torch.kernels import elca_segsum, intersect, ops, ref, searchsorted
+from repro_torch.kernels.shapes import INT_PAD, pad_to
+
+
+def t(x) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
+
+
+def sorted_unique(rng, n, hi=10**6):
+    return np.unique(rng.integers(0, hi, size=n).astype(np.int32))
+
+
+@pytest.fixture(autouse=True)
+def no_kernel_launches():
+    """CPU tensors take the plain versions: no test here launches a kernel."""
+    before = (searchsorted.LAUNCHES, intersect.LAUNCHES, elca_segsum.LAUNCHES)
+    yield
+    assert (searchsorted.LAUNCHES, intersect.LAUNCHES, elca_segsum.LAUNCHES) == before
+
+
+# --------------------------------------------------------------------------- #
+# The three kernel wrappers against the reference ops and the ref oracles
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("na,nq,block", [
+    (1000, 100, 128),
+    (100, 1000, 128),
+    (4096, 512, 512),
+    (513, 511, 128),
+    (1, 1, 128),
+    (5000, 5000, 256),
+])
+def test_intersect_membership_matches_reference(na, nq, block):
+    rng = np.random.default_rng(na * 7919 + nq)
+    a = sorted_unique(rng, na)
+    # sorted members and non-members, plus queries below and above a's range
+    q = np.unique(np.concatenate([
+        rng.choice(a, size=min(nq, a.size), replace=False),
+        rng.integers(0, 10**6, size=nq).astype(np.int32),
+    ]))[:nq]
+    if nq > 1:
+        q = np.unique(np.concatenate([q, np.array([-5, 2**31 - 2], np.int32)]))
+    want_found, want_pos = ref_ops.intersect_membership(a, q, bq=block, ba=block)
+    found, pos = ops.intersect_membership(t(a), t(q))
+    assert found.dtype == torch.bool and pos.dtype == torch.int32
+    np.testing.assert_array_equal(found.numpy(), want_found)
+    np.testing.assert_array_equal(pos.numpy(), want_pos)  # 0 on every miss
+    oracle_found, oracle_pos = ref.membership_ref(
+        t(pad_to(a, block, INT_PAD)), t(pad_to(q, block, INT_PAD))
+    )
+    np.testing.assert_array_equal(found.numpy(), oracle_found[: q.size].numpy())
+    np.testing.assert_array_equal(pos.numpy(), oracle_pos[: q.size].numpy())
+
+
+def test_intersect_membership_misses_write_zero():
+    a = np.array([10, 20, 30], np.int32)
+    q = np.array([5, 10, 25, 30, 99], np.int32)
+    found, pos = ops.intersect_membership(t(a), t(q))
+    assert found.tolist() == [False, True, False, True, False]
+    assert pos.tolist() == [0, 0, 0, 2, 0]
+    found, pos = ops.intersect_membership(t(a[:0]), t(q))  # empty list
+    assert not found.any() and not pos.any()
+
+
+@pytest.mark.parametrize("na,nq", [(1000, 100), (37, 513), (2048, 2048), (1, 7)])
+def test_searchsorted_positions_matches_reference(na, nq):
+    rng = np.random.default_rng(na + nq)
+    a = sorted_unique(rng, na, hi=10**5)
+    q = rng.integers(-5, 10**5 + 5, size=nq).astype(np.int32)  # unsorted
+    want = ref_ops.searchsorted_positions(a, q, bq=128, ba=128)
+    got = ops.searchsorted_positions(t(a), t(q))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    oracle = ref.searchsorted_ref(t(pad_to(a, 128, INT_PAD)), t(q))
+    np.testing.assert_array_equal(got.numpy(), oracle.numpy())
+
+
+def test_searchsorted_batched_rows_with_pad_tails():
+    rng = np.random.default_rng(3)
+    rows = np.full((6, 64), INT_PAD, np.int32)
+    for r in range(6):
+        row = sorted_unique(rng, int(rng.integers(1, 60)), hi=500)
+        rows[r, : row.size] = row
+    q = rng.integers(-3, 503, size=(6, 40)).astype(np.int32)
+    got = searchsorted.searchsorted(t(rows), t(q))
+    for r in range(6):
+        np.testing.assert_array_equal(
+            got[r].numpy(), np.searchsorted(rows[r], q[r], side="left")
+        )
+
+
+@pytest.mark.parametrize("m,k", [(100, 2), (513, 3), (1024, 4), (3, 2)])
+def test_elca_child_sums_matches_reference(m, k):
+    rng = np.random.default_rng(m * k)
+    ca = sorted_unique(rng, m)
+    m = ca.size
+    par = np.where(rng.random(m) < 0.8, ca[rng.integers(0, m, size=m)], -1)
+    par = par.astype(np.int32)
+    nd = rng.integers(1, 100, size=(k, m)).astype(np.int32)
+    want = ref_ops.elca_child_sums(ca, par, nd, bi=128, bj=128)
+    got = ops.elca_child_sums(t(ca), t(par), t(nd))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (k, m)
+    np.testing.assert_array_equal(got.numpy(), want)
+    oracle = ref.elca_segsum_ref(
+        t(pad_to(ca, 128, INT_PAD)), t(pad_to(par, 128, -1)), t(pad_to(nd, 128, 0))
+    )
+    np.testing.assert_array_equal(got.numpy(), oracle[:, :m].numpy())
+    # an INT32_MAX tail on ca (-1 on par, 0 on nd) changes nothing
+    padded = ops.elca_child_sums(
+        t(pad_to(ca, 128, INT_PAD)), t(pad_to(par, 128, -1)), t(pad_to(nd, 128, 0))
+    )
+    np.testing.assert_array_equal(padded[:, :m].numpy(), want)
+    assert not padded[:, m:].any()
+
+
+def test_wrappers_refuse_what_the_kernels_cannot_take():
+    a = torch.arange(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        ops.intersect_membership(a.long(), a)
+    with pytest.raises(ValueError, match="contiguous"):
+        searchsorted.searchsorted(a.reshape(2, 4).t(), a.reshape(4, 2))
+    with pytest.raises(ValueError, match="want a"):
+        searchsorted.searchsorted(a.reshape(2, 4), a.reshape(4, 2))
+    with pytest.raises(ValueError, match="want ca"):
+        ops.elca_child_sums(a, a, a.reshape(2, 4))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ops.intersect_membership(a.to("meta"), a.to("meta"))
+    with pytest.raises(ValueError, match="is on"):
+        ops.intersect_membership(a, a.to("meta"))
+
+
+# --------------------------------------------------------------------------- #
+# The batched search with the chained membership step
+# --------------------------------------------------------------------------- #
+
+
+def to_torch(batch: dict) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("semantics", ["slca", "elca", "ca"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_ca_search_batch_chained_matches_reference(semantics, k):
+    rng = np.random.default_rng(900 + k * 10 + len(semantics))
+    cache = RefPlanCache(backend="pallas")
+    items = random_items(rng, int(rng.integers(2, 6)), k)
+    batch, _, _ = cache.pack(items, list(range(len(items))), semantics, "pallas")
+    want_ids, want_mask = ref_ca_search_batch(
+        **batch, semantics=semantics, backend="pallas"
+    )
+    got_ids, got_mask = ca_search_batch(
+        **to_torch(batch), semantics=semantics, backend="chained"
+    )
+    torch_ids, torch_mask = ca_search_batch(
+        **to_torch(batch), semantics=semantics, backend="torch"
+    )
+    np.testing.assert_array_equal(got_ids.numpy(), np.asarray(want_ids))
+    np.testing.assert_array_equal(got_mask.numpy(), np.asarray(want_mask))
+    assert torch.equal(got_ids, torch_ids) and torch.equal(got_mask, torch_mask)
+
+
+def test_membership_chained_keeps_the_registry_contract():
+    rows = t([[1, 3, 5, INT_PAD], [2, 4, INT_PAD, INT_PAD]])
+    valid = t([3, 2])
+    q = t([[3, 4, 5, INT_PAD], [2, 9, 4, INT_PAD]])
+    found, pos = ops.membership_chained(rows, valid, q)
+    assert pos.dtype == torch.int64  # gathered with by the batched search
+    assert found.tolist() == [[True, False, True, False], [True, False, True, False]]
+    assert pos.tolist() == [[1, 2, 2, 3], [0, 2, 1, 2]]
+
+
+# --------------------------------------------------------------------------- #
+# run_query_chained against the reference run_query_pallas
+# --------------------------------------------------------------------------- #
+
+
+def random_query_lists(rng, k):
+    n = int(rng.integers(5, 400))
+    par = preorder_tree(rng, n)
+    return [keyword_list(rng, n, par, int(rng.integers(1, max(2, n // 2))))
+            for _ in range(k)]
+
+
+@pytest.mark.parametrize("semantics", ["slca", "elca", "ca"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_run_query_chained_matches_reference(semantics, k):
+    rng = np.random.default_rng(1200 + 7 * k + len(semantics))
+    for trial in range(2):
+        lists = random_query_lists(rng, k)
+        want = ref_ops.run_query_pallas(lists, semantics=semantics)
+        port_lists = [IDList(l.ids, l.pidpos, l.ndesc) for l in lists]
+        got = ops.run_query_chained(port_lists, semantics=semantics, device="cpu")
+        assert got.dtype == np.int64
+        np.testing.assert_array_equal(got, want, err_msg=f"trial {trial}")
+
+
+def test_run_query_chained_empty_and_bad_semantics():
+    rng = np.random.default_rng(5)
+    lists = [IDList(l.ids, l.pidpos, l.ndesc) for l in random_query_lists(rng, 2)]
+    empty = IDList(np.zeros(0, np.int32), np.zeros(0, np.int32), np.zeros(0, np.int32))
+    assert ops.run_query_chained([], device="cpu").size == 0
+    assert ops.run_query_chained([lists[0], empty], device="cpu").size == 0
+    with pytest.raises(ValueError, match="semantics"):
+        ops.run_query_chained(lists, semantics="lca", device="cpu")
+
+
+# --------------------------------------------------------------------------- #
+# The brute-force oracle
+# --------------------------------------------------------------------------- #
+
+
+BRUTE_WORDS = ["usa", "english", "vinyl", "rock", "jazz", "red"]
+
+
+def shared_subtree_tree(seed: int, n_target: int):
+    """A random tree whose specs reuse earlier subtrees (nested redundancy)."""
+    rng = np.random.default_rng(seed)
+    pool: list[NodeSpec] = []
+    count = [0]
+
+    def make(depth: int) -> NodeSpec:
+        count[0] += 1
+        if pool and rng.random() < 0.3:
+            return pool[int(rng.integers(0, len(pool)))]
+        n_children = int(rng.integers(0, 4)) if depth < 5 and count[0] < n_target else 0
+        words = rng.choice(BRUTE_WORDS, size=int(rng.integers(0, 3)))
+        node = NodeSpec(
+            label=f"tag{int(rng.integers(0, 4))}", text=" ".join(words),
+            children=[make(depth + 1) for _ in range(n_children)],
+        )
+        if rng.random() < 0.4:
+            pool.append(node)
+        return node
+
+    return build_tree(NodeSpec("root", children=[make(1) for _ in range(3)]))
+
+
+def brute_cases():
+    """(port tree, reference tree, keyword-id queries) on small trees."""
+    for seed in range(3):  # random trees with shared subtrees
+        tree = shared_subtree_tree(seed, 40)
+        kws = [tree.vocab.get(w) for w in ("usa", "english", "vinyl", "rock")]
+        yield tree, tree, [kws[:1], kws[:2], kws[1:4], [kws[2], -1]]
+    port_tree = generate_discogs_tree(n_releases=12, seed=4)
+    tree = ref_generate(n_releases=12, seed=4)
+    yield port_tree, tree, [
+        [tree.vocab.get(w) for w in words] for _c, words in QUERIES.values()
+    ]
+
+
+def test_brute_matches_reference():
+    for port_tree, tree, queries in brute_cases():
+        for q in queries:
+            for fn in ("ca_nodes", "slca_nodes", "elca_nodes"):
+                got = getattr(brute, fn)(port_tree, q)
+                want = getattr(ref_brute, fn)(tree, q)
+                assert got.dtype == want.dtype
+                np.testing.assert_array_equal(got, want, err_msg=f"{fn} {q}")

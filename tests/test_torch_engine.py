@@ -75,7 +75,7 @@ def test_fused_service_matches_reference(engines):
 
 def test_service_rejects_reference_backend_names(engines):
     _, port = engines
-    for name in ("jax", "xla", "pallas", "chained", "cuda"):
+    for name in ("jax", "xla", "pallas", "cuda"):
         with pytest.raises(ValueError, match="backend"):
             QueryService(port, backend=name, device="cpu")
     with pytest.raises(ValueError, match="engine runs on cpu"):
