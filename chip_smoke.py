@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA card and check them.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
 
 Phases (any failure exits non-zero, and no result line is printed):
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the four kernels from ``src/repro_torch/csrc`` with nvcc, one
+  2. build the five kernels from ``src/repro_torch/csrc`` with nvcc, one
      process per source, all at once, with the time of each;
-  3. the fused path at a realistic size: the synthetic discogs corpus of 20,000
-     releases (about 1.03 M nodes), ``KeywordSearchEngine`` on ``cuda``, the
-     paper's nine queries x slca/elca x the tree and DAG indexes with
-     ``backend="fused"`` through ``engine.query``, then a
+  3. the fused search path at a realistic size: the synthetic discogs corpus
+     of 20,000 releases (about 1.03 M nodes), ``KeywordSearchEngine`` on
+     ``cuda``, the paper's nine queries x slca/elca x the tree and DAG
+     indexes with ``backend="fused"`` through ``engine.query``, then a
      ``QueryService(backend="fused")`` answering the 18 DAG queries
      submitted together.  The kernel's launch count is zeroed just before
      and read just after;
@@ -34,10 +34,23 @@ Phases (any failure exits non-zero, and no result line is printed):
      the time of one ``torch.searchsorted`` call on the same inputs beside
      the searchsorted and intersect kernels (no single PyTorch call
      computes the ELCA child sums);
-  8. a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
-     line ``{"ok": true, "device": {...}}``.
+  8. LM serving: SmolLM-135M at its published widths in bf16 with seeded
+     random weights, through ``repro_torch.launch.serve``: 8 requests of
+     1,024 prompt tokens (768 shared) + 64 generated, once with one batched
+     prefill and once with ``--prefix-dag``.  The decode_attention launch
+     count is zeroed just before each run and read just after: 30 layers x
+     63 decode steps each.  The last decode step's logits are held against
+     a prefill over the same tokens, in bf16 and in a float32 copy of the
+     model; the kernel against its plain version on seeded random shapes
+     and on every call the two runs made, with one pass of those calls
+     timed beside ``scaled_dot_product_attention``; one call at the
+     decode_32k cell's shape (B 128, T 32,768) timed the same way; last, one
+     profiled serving run of 8 decode steps (device busy and idle share);
+  9. a ``{"kernels": [...]}`` line with all five kernels, the nvidia-smi
+     line, and as the last line ``{"ok": true, "device": {...}}``.
 
-Per-call details go to ``chiprun_out/chip_smoke_rounds.json``.
+Per-call details go to ``chiprun_out/chip_smoke_rounds.json`` (search) and
+``chiprun_out/chip_smoke_lm.json`` (LM).
 """
 from __future__ import annotations
 
@@ -94,6 +107,11 @@ KERNELS = {
     "elca_segsum": Kernel(
         "elca_child_sums", "src/repro/kernels/elca_segsum.py:24",
         ("segsum_kernel", "Memset"), None,
+    ),
+    # the library call (scaled_dot_product_attention) is sdpa_call below
+    "decode_attention": Kernel(
+        "decode_attention", "src/repro/kernels/decode_attention.py:33",
+        ("decode_attention_kernel",), None,
     ),
 }
 CHAINED = ("searchsorted", "intersect", "elca_segsum")  # the chained path's
@@ -202,26 +220,31 @@ def cuda_ms(fn) -> float:
     return float(np.median(times))
 
 
-def profile_pass(fn) -> tuple[float, dict[str, float]]:
+def profile_pass(fn, tries: int = 3) -> tuple[float, dict[str, float]]:
     """Run ``fn`` once under torch.profiler: (wall ms, {device op: ms}).
 
-    Device ops are the kernels and copies the profiler saw on the card; an
-    empty dict means it saw none (then nothing is reported as measured).
+    Device ops are the kernels and copies the profiler saw on the card.  A
+    pass in which it saw none is run again, up to ``tries`` times (the
+    profiler loses a short pass now and then); an empty dict means it never
+    saw any (then nothing is reported as measured).
     """
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev: dict[str, float] = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            dev[evt.name] = dev.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        dev: dict[str, float] = {}
+        for evt in prof.events():
+            if evt.device_type == DeviceType.CUDA:
+                dev[evt.name] = dev.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
+        if dev:
+            break
     return wall_ms, dev
 
 
@@ -567,39 +590,16 @@ def pass_ms(calls) -> float:
     return cuda_ms(lambda: [call() for call in calls])
 
 
-def main() -> int:
+def search_phase(card: str) -> list[dict]:
+    """The fused and chained search paths, checked and measured; returns
+    their kernel lines."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; this check needs one card",
-              file=sys.stderr)
-        return 2
     from repro_torch.core import KeywordSearchEngine, PlanCache
     from repro_torch.data import generate_discogs_tree
-    from repro_torch.kernels import _build, fused_search
+    from repro_torch.kernels import fused_search
 
-    card = card_line()
-    print(card)
-    kind = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
-
-    # ---- 1. build: one nvcc per source, all started together ------------ #
-    modules = [module(name) for name in KERNELS]
-
-    def build(mod):
-        t0 = time.perf_counter()
-        lib = _build.build(mod._SOURCE)
-        return lib, time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(modules)) as pool:
-        built = list(pool.map(build, modules))
-    for mod, (lib, secs) in zip(modules, built):
-        _build.load(mod._SOURCE, mod._FUNCTIONS)
-        print(f"build: {lib.relative_to(ROOT)} in {secs:.2f} s")
-    print(f"build: all {len(modules)} kernels in {time.perf_counter() - t0:.2f} s")
-
-    # ---- 2. corpus + engine on the card ---------------------------------- #
+    # ---- corpus + engine on the card ---------------------------------- #
     t0 = time.perf_counter()
     tree = generate_discogs_tree(n_releases=N_RELEASES, seed=0)
     t_gen = time.perf_counter() - t0
@@ -619,7 +619,7 @@ def main() -> int:
         "allows"
     )
 
-    # ---- 3. main path: warm, then counted ------------------------------- #
+    # ---- main path: warm, then counted ------------------------------- #
     run_engine(engine, "fused")  # warm: CUDA context, allocator, pinned pool
     torch.cuda.synchronize()
     fallbacks0 = engine.plan_cache.fused_fallbacks
@@ -646,7 +646,7 @@ def main() -> int:
         f"{svc_stats.get('launches')}"
     )
 
-    # ---- 4. answers against the scalar and torch backends ---------------- #
+    # ---- answers against the scalar and torch backends ---------------- #
     scalar, scalar_lat = run_engine(engine, "scalar")
     run_engine(engine, "torch")  # warm
     vec, torch_lat = run_engine(engine, "torch")
@@ -657,7 +657,7 @@ def main() -> int:
     print(f"answers: {len(fused)} fused + {len(served)} service + {len(vec)} "
           f"torch equal scalar ({n_ids} ids in all)")
 
-    # ---- 5. the chained path: warm on Q4-Q9, then counted ----------------- #
+    # ---- the chained path: warm on Q4-Q9, then counted ----------------- #
     run_engine(engine, "chained", names=("Q4", "Q5", "Q6", "Q7", "Q8", "Q9"))
     torch.cuda.synchronize()
     for name in CHAINED:
@@ -700,7 +700,7 @@ def main() -> int:
               f"{q['torch_ms']:.1f} ms scalar {q['scalar_ms']:.1f} ms")
 
     # where a fused query's time goes: one profiled pass of the 36 queries
-    wall_ms, dev = profile_pass(lambda: run_engine(engine, "fused"))
+    wall_ms, dev = profile_pass(lambda: run_engine(engine, "fused"), tries=1)
     busy_ms = sum(dev.values())
     profile_rec = {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms if dev else None,
@@ -716,7 +716,7 @@ def main() -> int:
     else:
         print("profiled fused pass: device time not measured (no device events)")
 
-    # ---- 6. the fused kernel vs plain ----------------------------------- #
+    # ---- the fused kernel vs plain ----------------------------------- #
     random_recs = []
     for label, items, sem, min_rows in random_batches():
         plan = PlanCache(backend="fused", min_rows=min_rows, device=DEVICE)
@@ -772,7 +772,7 @@ def main() -> int:
            if device_ms is not None else "not measured (no device events)")
     )
 
-    # ---- 7. the chained kernels vs plain --------------------------------- #
+    # ---- the chained kernels vs plain --------------------------------- #
     chained_recs = {name: {"random": [], "calls": []} for name in CHAINED}
     for name, label, args in chained_random_cases():
         r = check_chained(name, args)
@@ -839,12 +839,12 @@ def main() -> int:
                    "chained": chained_recs, "main_path_profile": profile_rec,
                    "per_query": per_query}, f, indent=1)
 
-    # ---- 8. result lines --------------------------------------------- #
     err = max(r["max_abs_err"] for r in random_recs + round_recs)
-    print(json.dumps({"kernels": [{
+    fused_line = {
         "name": "fused_search", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_search.cu",
-        "replaces": KERNELS["fused_search"].replaces, "launches": main_launches, "max_abs_err": err,
+        "replaces": KERNELS["fused_search"].replaces, "launches": main_launches,
+        "max_abs_err": err,
         "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
         "device_ms": device_ms,
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in round_recs)
@@ -852,7 +852,376 @@ def main() -> int:
         "library_ms": None,
         "matches_plain": True,
         "rounds": len(round_recs),
-    }, *chained_lines]}))
+    }
+    return [fused_line, *chained_lines]
+
+
+# --------------------------------------------------------------------------- #
+# LM serving: SmolLM-135M through decode_attention
+# --------------------------------------------------------------------------- #
+
+LM_ARCH = "smollm-135m"  # the serving launcher's default, at its published widths
+LM_REQUESTS = 8
+LM_PROMPT = 1024
+LM_SHARED = 768  # prompt tokens all requests share
+LM_GEN = 64  # tokens generated per request: 63 decode steps after the prefill
+DECODE_TOL = 0.15  # tests/test_arch_smoke.py's decode-vs-prefill tolerance
+KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference kernel test's own
+# the decode_32k cell (configs/registry.py SHAPES) for one SmolLM-135M layer
+DECODE_32K = {"b": 128, "t": 32_768, "h": 9, "hk": 3, "hd": 64}
+
+
+class DecodeRecorder:
+    """Keeps every call the model makes to the decode-attention wrapper.
+
+    Inside ``with DecodeRecorder() as rec`` the attention module's calls of
+    ``kernels.decode_attention.decode_attention`` go to ``rec.calls`` as
+    ``(rec.label, (q, k, v, cache_len))``, then run as they would.  K and V
+    are the cache tensors themselves: later steps write past each call's
+    lengths only, so a recorded call computes the same again.
+    """
+
+    def __init__(self):
+        self.label = ""
+        self.calls: list[tuple[str, tuple]] = []
+
+    def __enter__(self):
+        da = module("decode_attention")
+        self._orig = da.decode_attention
+
+        def wrapped(*args):
+            self.calls.append((self.label, args))
+            return self._orig(*args)
+
+        da.decode_attention = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        module("decode_attention").decode_attention = self._orig
+
+
+def decode_bound(q, k, cache_len) -> tuple[float, str, int, int]:
+    """Least time for one decode-attention call on these inputs.
+
+    Bytes: the valid K/V prefix of each row (min(len, T) positions of Hk x hd
+    each, K and V) read once, q and len read once, o written once.
+    Operations: a dot product with each valid key and a weighted add of each
+    valid value, 4 * H * hd flops per valid position (float32, outside the
+    tensor cores, as the kernel computes them).
+    """
+    b, h, hd = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    n_valid = int(cache_len.clamp(0, t).sum())
+    n_bytes = 2 * n_valid * hk * hd * k.element_size() + 2 * q.numel() * q.element_size() + 4 * b
+    return least_time(n_bytes, 4 * h * hd * n_valid)
+
+
+def sdpa_inputs(q, k, v, cache_len):
+    """The library call's inputs for a decode-attention call: [B, heads, len,
+    hd] views and a [B, 1, 1, T] mask (built once, outside the timing)."""
+    import torch
+
+    t = k.shape[1]
+    mask = (torch.arange(t, device=k.device)[None, :] < cache_len[:, None])[:, None, None]
+    return q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), mask
+
+
+def sdpa_call(q, k, v, mask):
+    """One ``scaled_dot_product_attention`` call computing the same function
+    (timed as the yardstick only; the port never calls it)."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+
+def check_decode(args, dtype_name: str) -> dict:
+    """Kernel == plain within the tolerance on one call's inputs (raises
+    otherwise); the bound of the call."""
+    import torch
+
+    da = module("decode_attention")
+    got, want = da.decode_attention(*args), da.decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+    if not err <= KERNEL_TOL[dtype_name]:
+        raise AssertionError(
+            f"decode_attention kernel != plain: max abs err {err} > {KERNEL_TOL[dtype_name]} "
+            f"at {[list(a.shape) for a in args]}"
+        )
+    bound_ms, bound_by, n_bytes, n_ops = decode_bound(args[0], args[1], args[3])
+    return {"shapes": [list(a.shape) for a in args], "dtype": dtype_name,
+            "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": n_bytes, "ops": n_ops}
+
+
+def decode_random_cases():
+    """(label, dtype name, inputs on the card) of the random decode checks:
+    head dims 64-192, rep 1-8, a ragged T, rows of length 0, 1 and T."""
+    import torch
+
+    rng = np.random.default_rng(2)
+    cases = []
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for hd in (64, 128, 160, 192):
+            for rep in (1, 3, 4, 8):
+                b, t, hk = 4, int(rng.integers(200, 1200)), 2
+                lens = [0, 1, t, int(rng.integers(1, t + 1))]
+                q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+                           .to(DEVICE, dtype)
+                           for shape in ((b, rep * hk, hd), (b, t, hk, hd), (b, t, hk, hd)))
+                cases.append((f"{dtype_name} hd={hd} rep={rep} T={t}", dtype_name,
+                              (q, k, v, torch.tensor(lens, dtype=torch.int32, device=DEVICE))))
+    return cases
+
+
+def logits_agree(got, want, dtype: str) -> dict:
+    """Decode logits against a prefill's: elementwise within DECODE_TOL
+    absolute + relative (float32) or within DECODE_TOL x the RMS of the
+    prefill's logits (bfloat16, where rounding noise follows the logits'
+    scale, not each logit's); raises otherwise."""
+    import torch
+
+    got, want = got.float(), want.float()
+    if not (torch.isfinite(got).all() and got.shape == want.shape):
+        raise AssertionError(f"{dtype}: logits not finite or of shape {tuple(got.shape)}")
+    err = (got - want).abs()
+    rms = float(want.square().mean().sqrt())
+    n_elementwise = int((err > DECODE_TOL + DECODE_TOL * want.abs()).sum())
+    rec = {"max_abs_err": float(err.max()), "logits_rms": rms,
+           "over_elementwise_tol": n_elementwise, "logits": want.numel(),
+           "argmax_equal": int((got.argmax(-1) == want.argmax(-1)).sum())}
+    ok = (n_elementwise == 0) if dtype == "float32" else (
+        rec["max_abs_err"] <= DECODE_TOL * rms)
+    print(f"decode vs prefill ({dtype}): max abs err {rec['max_abs_err']:.4f}, logits RMS "
+          f"{rms:.3f}, {n_elementwise} of {want.numel()} logits over {DECODE_TOL} abs + rel, "
+          f"argmax equal on {rec['argmax_equal']} of {want.shape[0]} rows")
+    if not ok:
+        raise AssertionError(f"decode vs prefill ({dtype}) disagree: {rec}")
+    return rec
+
+
+def decode_vs_prefill(model, cfg, prompts, out) -> dict:
+    """The last decode step's logits (position p) against the last logits of
+    one prefill over tokens[:p+1] (the plain attention path)."""
+    import torch
+
+    from repro_torch.models import init_cache, prefill
+
+    seq = torch.cat([torch.as_tensor(np.stack(prompts), device=DEVICE),
+                     out["tokens"][:, :-1]], dim=1)
+    want, _ = prefill(model, cfg, seq, init_cache(cfg, seq.shape[0], seq.shape[1], DEVICE))
+    return logits_agree(out["logits"], want, cfg.dtype)
+
+
+def lm_phase() -> dict:
+    """SmolLM-135M serving through ``repro_torch.launch.serve``, checked and
+    measured; returns the decode_attention kernel line."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import init_params
+
+    da = module("decode_attention")
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = init_params(0, cfg, DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"lm: {cfg.name} at its published widths ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}), {n_params} parameters from seed 0 "
+          f"in {time.perf_counter() - t0:.2f} s")
+    prompts = launcher.make_prompts(cfg.vocab, LM_REQUESTS, LM_PROMPT, LM_SHARED, seed=0)
+    launcher.serve(model, cfg, [p[:64] for p in prompts[:2]], gen=4)  # warm
+    launcher.serve(model, cfg, [p[:64] for p in prompts[:2]], gen=4, prefix_dag=True)
+
+    runs = {}
+    steps = LM_GEN - 1
+    with DecodeRecorder() as rec:
+        for mode in ("plain", "prefix-dag"):
+            rec.label = mode
+            torch.cuda.synchronize()
+            da.LAUNCHES = 0
+            out = launcher.serve(model, cfg, prompts, LM_GEN, prefix_dag=mode == "prefix-dag")
+            torch.cuda.synchronize()
+            launches = da.LAUNCHES
+            if launches != cfg.n_layers * steps:
+                raise AssertionError(f"lm {mode}: {launches} decode_attention launches, "
+                                     f"want {cfg.n_layers} layers x {steps} steps")
+            logits = out["logits"]
+            if logits.shape != (LM_REQUESTS, cfg.vocab) or not torch.isfinite(logits.float()).all():
+                raise AssertionError(f"lm {mode}: logits {tuple(logits.shape)} not finite")
+            toks = out["tokens"]
+            if toks.shape != (LM_REQUESTS, LM_GEN) or not ((toks >= 0) & (toks < cfg.vocab)).all():
+                raise AssertionError(f"lm {mode}: tokens {tuple(toks.shape)} out of range")
+            tok_s = steps * LM_REQUESTS / out["t_decode"]
+            runs[mode] = dict(out, launches=launches, tok_s=tok_s)
+            print(f"lm {mode}: {LM_REQUESTS} requests x {LM_PROMPT} prompt tokens "
+                  f"({LM_SHARED} shared) + {LM_GEN} generated; prefill "
+                  f"{out['t_prefill'] * 1e3:.2f} ms, decode {steps} steps in "
+                  f"{out['t_decode'] * 1e3:.2f} ms = {tok_s:.1f} tok/s"
+                  + ("" if out["savings"] is None else
+                     f"; plan savings {100 * out['savings']:.1f}% of prefill tokens")
+                  + f"; decode_attention launches {launches}")
+    same = int((runs["plain"]["tokens"] == runs["prefix-dag"]["tokens"]).all(dim=1).sum())
+    print(f"lm: plain and prefix-dag runs generate the same {LM_GEN} tokens on {same} of "
+          f"{LM_REQUESTS} requests")
+    agree = {"bfloat16": decode_vs_prefill(model, cfg, prompts, runs["plain"])}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = init_params(0, cfg32, DEVICE)
+    out32 = launcher.serve(model32, cfg32, prompts, LM_GEN)
+    agree["float32"] = decode_vs_prefill(model32, cfg32, prompts, out32)
+    del model32, out32
+
+    # ---- decode_attention vs plain: random shapes, every recorded call -- #
+    recs = {"random": [], "calls": []}
+    for label, dtype_name, args in decode_random_cases():
+        r = check_decode(args, dtype_name)
+        r["case"] = label
+        recs["random"].append(r)
+    calls = [args for _l, args in rec.calls]
+    for label, args in rec.calls:
+        r = check_decode(args, "bfloat16")
+        r["run"] = label
+        recs["calls"].append(r)
+    sdpa_args = [sdpa_inputs(*a) for a in calls]
+    passes = {
+        "ms": pass_ms([lambda a=a: da.decode_attention(*a) for a in calls]),
+        "plain_ms": pass_ms([lambda a=a: da.decode_attention_plain(*a) for a in calls]),
+        "library_ms": pass_ms([lambda a=a: sdpa_call(*a) for a in sdpa_args]),
+    }
+    _, dev = profile_pass(lambda: [da.decode_attention(*a) for a in calls])
+    dev_ms = kernel_device_ms(dev, "decode_attention") if dev else None
+    by = {"bytes": 0.0, "operations": 0.0}
+    for r in recs["calls"]:
+        by[r["bound_by"]] += r["bound_ms"]
+    sdpa_err = max(float((sdpa_call(*s).float() - da.decode_attention_plain(*a).float())
+                         .abs().max()) for s, a in zip(sdpa_args[:60], calls[:60]))
+    print(
+        f"decode_attention==plain on {len(recs['random'])} random shapes and all "
+        f"{len(calls)} recorded calls (max abs err "
+        f"{max(r['max_abs_err'] for r in recs['random'] + recs['calls']):.3g}); one pass of "
+        f"the calls (CUDA events, median of {TIMING_REPS}): kernel {passes['ms']:.4f} ms plain "
+        f"{passes['plain_ms']:.4f} ms library (scaled_dot_product_attention, max abs err "
+        f"{sdpa_err:.3g} against plain) {passes['library_ms']:.4f} ms bound "
+        f"{sum(by.values()):.5f} ms ({max(by, key=by.get)}); device (profiler) "
+        + ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms")
+    )
+    del sdpa_args
+
+    # ---- one call at the decode_32k cell's shape, one SmolLM layer ------- #
+    big = decode_32k_call()
+
+    # where a decode step's time goes: one profiled plain run of 8 steps, last,
+    # since the profiler loses events in later passes after a trace this long
+    wall_ms, dev = profile_pass(lambda: launcher.serve(model, cfg, prompts, 9))
+    busy_ms = sum(dev.values())
+    profile_rec = {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms if dev else None,
+        "kernel_ms": kernel_device_ms(dev, "decode_attention") if dev else None,
+        "top_device_ops": sorted(dev.items(), key=lambda kv: -kv[1])[:10],
+    }
+    if dev:
+        print(f"lm profiled plain run (prefill + 8 decode steps): wall {wall_ms:.1f} ms, "
+              f"device busy {busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.4f}), "
+              f"decode_attention {profile_rec['kernel_ms']:.3f} ms")
+    else:
+        print("lm profiled run: device time not measured (no device events)")
+
+    OUT_DIR.mkdir(exist_ok=True)
+    with open(OUT_DIR / "chip_smoke_lm.json", "w") as f:
+        json.dump({
+            "runs": {m: {k: r[k] for k in ("t_prefill", "t_decode", "savings", "launches",
+                                           "tok_s")} for m, r in runs.items()},
+            "decode_vs_prefill": agree, "decode_32k": big, "profile": profile_rec,
+            "random": recs["random"],
+            "calls": recs["calls"],
+        }, f, indent=1)
+    return {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": KERNELS["decode_attention"].replaces,
+        "launches": sum(r["launches"] for r in runs.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in recs["random"] + recs["calls"]
+                           + [big]),
+        "ms": passes["ms"], "plain_ms": passes["plain_ms"],
+        "bound_ms": sum(by.values()), "bound_by": max(by, key=by.get),
+        "library_ms": passes["library_ms"], "device_ms": dev_ms,
+        "matches_plain": True, "calls": len(calls),
+        "decode_32k": big,
+    }
+
+
+def decode_32k_call() -> dict:
+    """The kernel, its plain version and the library call at the decode_32k
+    cell's shape for one SmolLM-135M layer (bf16, seeded lengths in [1, T])."""
+    import torch
+
+    da = module("decode_attention")
+    b, t, h, hk, hd = (DECODE_32K[n] for n in ("b", "t", "h", "hk", "hd"))
+    gen = torch.Generator(DEVICE).manual_seed(3)
+    q = torch.randn((b, h, hd), generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    k = torch.randn((b, t, hk, hd), generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    v = torch.randn((b, t, hk, hd), generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    lens = torch.randint(1, t + 1, (b,), generator=gen, device=DEVICE, dtype=torch.int32)
+    args = (q, k, v, lens)
+    r = check_decode(args, "bfloat16")
+    r["ms"] = cuda_ms(lambda: da.decode_attention(*args))
+    _, dev = profile_pass(lambda: da.decode_attention(*args))
+    r["device_ms"] = kernel_device_ms(dev, "decode_attention") if dev else None
+    r["plain_ms"] = cuda_ms(lambda: da.decode_attention_plain(*args))
+    sdpa_args = sdpa_inputs(*args)
+    r["library_ms"] = cuda_ms(lambda: sdpa_call(*sdpa_args))
+    r["library_max_abs_err"] = float(
+        (sdpa_call(*sdpa_args).float() - da.decode_attention_plain(*args).float()).abs().max())
+    r["mean_len"] = float(lens.float().mean())
+    print(
+        f"decode_attention at decode_32k (B={b} T={t} H={h}/{hk} hd={hd} bf16, mean len "
+        f"{r['mean_len']:.0f}): kernel {r['ms']:.4f} ms, device (profiler) "
+        + ("not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms")
+        + f", plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms (max abs err "
+        f"{r['library_max_abs_err']:.3g} against plain), bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}, {r['bytes']} bytes); kernel max abs err {r['max_abs_err']:.3g}"
+    )
+    return r
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this check needs one card",
+              file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build
+
+    card = card_line()
+    print(card)
+    kind = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
+
+    # ---- build: one nvcc per source, all started together --------------- #
+    modules = [module(name) for name in KERNELS]
+
+    def build(mod):
+        t0 = time.perf_counter()
+        lib = _build.build(mod._SOURCE)
+        return lib, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(modules)) as pool:
+        built = list(pool.map(build, modules))
+    for mod, (lib, secs) in zip(modules, built):
+        _build.load(mod._SOURCE, mod._FUNCTIONS)
+        print(f"build: {lib.relative_to(ROOT)} in {secs:.2f} s")
+    print(f"build: all {len(modules)} kernels in {time.perf_counter() - t0:.2f} s")
+
+    lines = [*search_phase(card), lm_phase()]
+
+    # ---- result lines --------------------------------------------------- #
+    print(json.dumps({"kernels": lines}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

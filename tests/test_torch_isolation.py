@@ -34,7 +34,7 @@ def test_every_port_module_imports_without_jax_or_reference():
         capture_output=True, text=True, env=env, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20  # every module was visited
+    assert int(proc.stdout.split()[-1]) >= 54  # every module was visited
 
 
 _FORBIDDEN = re.compile(
@@ -63,3 +63,25 @@ def test_default_device_raises_without_cuda(monkeypatch):
         PlanCache()
     engine = KeywordSearchEngine(tree, device="cpu")  # naming the CPU works
     assert engine.device.type == "cpu"
+
+
+def test_lm_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_params, prefill
+    from repro_torch.models.convert import params_from_numpy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("smollm-135m").reduced()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_params(0, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        params_from_numpy({}, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--reduced", "--requests", "1", "--prompt-len", "4", "--gen", "2"])
+    model = init_params(0, cfg, device="cpu")  # naming the CPU works
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    last, _ = prefill(model, cfg, tokens, init_cache(cfg, 1, 8, device="cpu"))
+    assert last.shape == (1, cfg.vocab) and last.device.type == "cpu"
