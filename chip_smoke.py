@@ -33,8 +33,15 @@ Phases (any failure exits non-zero, and no result line is printed):
      random shapes and on every call the counted chained path made, with
      the time of one ``torch.searchsorted`` call on the same inputs beside
      the searchsorted and intersect kernels (no single PyTorch call
-     computes the ELCA child sums);
-  8. LM serving: SmolLM-135M at its published widths in bf16 with seeded
+     computes the ELCA child sums), and the library pass's device time;
+     then a host-clock breakdown of one main-path ``searchsorted`` call:
+     the checks, the allocation, the entry lookup, the device guard, the
+     stream lookup, the pointers and the ctypes call, each timed on its
+     own, beside the whole call and ``torch.searchsorted``;
+  8. first, one decode-attention call at the decode_32k cell's shape (B
+     128, T 32,768) against its plain version, timed by CUDA events, by a
+     profiled pass of 10 and beside ``scaled_dot_product_attention``; then
+     LM serving: SmolLM-135M at its published widths in bf16 with seeded
      random weights, through ``repro_torch.launch.serve``: 8 requests of
      1,024 prompt tokens (768 shared) + 64 generated, once with one batched
      prefill and once with ``--prefix-dag``.  The decode_attention launch
@@ -42,15 +49,18 @@ Phases (any failure exits non-zero, and no result line is printed):
      63 decode steps each.  The last decode step's logits are held against
      a prefill over the same tokens, in bf16 and in a float32 copy of the
      model; the kernel against its plain version on seeded random shapes
-     and on every call the two runs made, with one pass of those calls
-     timed beside ``scaled_dot_product_attention``; one call at the
-     decode_32k cell's shape (B 128, T 32,768) timed the same way; last, one
-     profiled serving run of 8 decode steps (device busy and idle share);
+     and on every call the two runs made (and two kernel calls bit for bit
+     equal), with one pass of those calls timed beside
+     ``scaled_dot_product_attention`` (CUDA events and profiler device
+     time); last, one profiled serving run of 8 decode steps (device busy
+     and idle share);
   9. a ``{"kernels": [...]}`` line with all five kernels, the nvidia-smi
      line, and as the last line ``{"ok": true, "device": {...}}``.
 
-Per-call details go to ``chiprun_out/chip_smoke_rounds.json`` (search) and
-``chiprun_out/chip_smoke_lm.json`` (LM).
+Profiler device times are reported only from a pass in which the profiler
+recorded every launch the pass made (``expected_launches``), else as not
+measured.  Per-call details go to ``chiprun_out/chip_smoke_rounds.json``
+(search) and ``chiprun_out/chip_smoke_lm.json`` (LM).
 """
 from __future__ import annotations
 
@@ -109,9 +119,10 @@ KERNELS = {
         ("segsum_kernel", "Memset"), None,
     ),
     # the library call (scaled_dot_product_attention) is sdpa_call below
+    # the split kernel and, when T is split, the combine kernel
     "decode_attention": Kernel(
         "decode_attention", "src/repro/kernels/decode_attention.py:33",
-        ("decode_attention_kernel",), None,
+        ("decode_attention_split", "decode_attention_combine"), None,
     ),
 }
 CHAINED = ("searchsorted", "intersect", "elca_segsum")  # the chained path's
@@ -220,38 +231,112 @@ def cuda_ms(fn) -> float:
     return float(np.median(times))
 
 
-def profile_pass(fn, tries: int = 3) -> tuple[float, dict[str, float]]:
-    """Run ``fn`` once under torch.profiler: (wall ms, {device op: ms}).
+def profile_pass(fn) -> tuple[float, dict[str, float], dict[str, int]]:
+    """Run ``fn`` twice under torch.profiler, a warm-up step and then a
+    recorded step: (wall ms, {device op: ms}, {device op: events}) of the
+    recorded one.
 
-    Device ops are the kernels and copies the profiler saw on the card.  A
-    pass in which it saw none is run again, up to ``tries`` times (the
-    profiler loses a short pass now and then); an empty dict means it never
-    saw any (then nothing is reported as measured).
+    Device ops are the kernels and copies the profiler saw on the card (not
+    the ``ProfilerStep`` span it also puts there, which covers the whole
+    step).  The warm-up step has the device tracing running before the
+    recorded pass starts: passes traced from a cold start lost some of
+    their events.
     """
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    for _ in range(tries):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        dev: dict[str, float] = {}
-        for evt in prof.events():
-            if evt.device_type == DeviceType.CUDA:
-                dev[evt.name] = dev.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
-        if dev:
-            break
-    return wall_ms, dev
+        prof.step()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    dev: dict[str, float] = {}
+    events: dict[str, int] = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA and not evt.name.startswith("ProfilerStep"):
+            dev[evt.name] = dev.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
+            events[evt.name] = events.get(evt.name, 0) + 1
+    return wall_ms, dev, events
 
 
 def kernel_device_ms(dev: dict[str, float], name: str) -> float:
     """Device ms of kernel ``name``'s device operations in a profile."""
     ops = KERNELS[name].device_ops
     return sum(ms for op, ms in dev.items() if any(p in op for p in ops))
+
+
+def expected_launches(name: str, calls) -> dict[str, int]:
+    """{device op: launches} a pass of ``calls`` (each a wrapper's arguments)
+    makes of kernel ``name``, by the rules of its C entry point."""
+    n = dict.fromkeys(KERNELS[name].device_ops, 0)
+    for args in calls:
+        if name == "fused_search":
+            batch, sem = args
+            rows, m0 = batch["ids0"].shape
+            if rows and m0:
+                n["membership_kernel"] += 1
+                n["parent_kernel"] += sem != "ca"
+                n["keep_kernel"] += 1
+        elif name == "searchsorted":
+            a, q = args
+            n["searchsorted_kernel"] += a.shape[0] > 0 and q.shape[1] > 0
+        elif name == "intersect":
+            n["intersect_kernel"] += args[1].numel() > 0
+        elif name == "elca_segsum":
+            ca, par, nd = args
+            if ca.numel() and nd.shape[0]:
+                n["Memset"] += 1
+                n["segsum_kernel"] += par.numel() > 0
+        else:
+            q, k = args[0], args[1]
+            b, h = q.shape[:2]
+            t, hk = k.shape[1], k.shape[2]
+            if b and h:
+                n["decode_attention_split"] += 1
+                n["decode_attention_combine"] += module(name).split_plan(b, hk, h // hk, t)[1] > 1
+    return n
+
+
+def device_pass_ms(fn, expect, name: str | None = None,
+                   tries: int = 3) -> tuple[float | None, dict[str, int]]:
+    """(device ms of one pass, {device op: events recorded}) from
+    ``profile_pass``.
+
+    ``name`` is a kernel of ``KERNELS``: its device ops count, and
+    ``expect`` is ``expected_launches`` of the pass.  ``None`` is a library
+    call: every device op counts, ``expect`` is the number of calls, and
+    each event of the op with the most time is one call.  The time is
+    reported only from a pass whose every expected event the profiler
+    recorded, no more and no fewer; a pass recorded in part is profiled
+    again, up to ``tries`` times, and after that the time is None (not
+    measured) beside the counts of the last try.
+    """
+    for _ in range(tries):
+        _, dev, events = profile_pass(fn)
+        if name is not None:
+            counts = {p: sum(n for op, n in events.items() if p in op)
+                      for p in KERNELS[name].device_ops}
+            complete, total = counts == expect, kernel_device_ms(dev, name)
+        else:
+            counts = events
+            complete = bool(dev) and events[max(dev, key=dev.get)] == expect
+            total = sum(dev.values())
+        if complete:
+            return total, counts
+    return None, counts
+
+
+def device_text(ms: float | None, counts: dict[str, int], expect) -> str:
+    if ms is None:
+        return f"not measured (the profiler recorded {counts}, want {expect})"
+    return f"{ms:.4f} ms"
 
 
 # the packed inputs each semantics reads: SLCA needs no NDesc, CA no parents
@@ -456,6 +541,70 @@ def chained_random_cases():
         cases.append(("elca_segsum", f"MI={ca.size} K={k} pad={pad}",
                       (on(ca), on(par), on(nd))))
     return cases
+
+
+BREAKDOWN_REPS = 200  # calls per timed batch of the host breakdown
+BREAKDOWN_BATCHES = 15
+
+
+def host_us(fn) -> float:
+    """Median host-clock µs of one call of ``fn``: batches of
+    BREAKDOWN_REPS calls, the device synchronised between batches, outside
+    the timed loop."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(BREAKDOWN_BATCHES):
+        t0 = time.perf_counter_ns()
+        for _ in range(BREAKDOWN_REPS):
+            fn()
+        per_call.append((time.perf_counter_ns() - t0) / BREAKDOWN_REPS / 1e3)
+        torch.cuda.synchronize()
+    return float(np.median(per_call))
+
+
+def launch_breakdown(a, q) -> dict:
+    """Host µs of each part of one ``searchsorted`` call on these inputs,
+    each part timed on its own as the wrapper does it, beside the whole
+    call and one ``torch.searchsorted`` call."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    ss = module("searchsorted")
+    dev = a.device
+    rows, m = a.shape
+    nq = q.shape[1]
+    out = torch.empty_like(q)
+    ptrs = (a.data_ptr(), q.data_ptr(), rows, m, nq, out.data_ptr())
+    entry = ss._LAUNCH
+    entry(dev.index, *ptrs)  # binds it
+    fn, stream = entry._fn, _build.current_stream_ptr(dev.index)
+
+    parts = {
+        "checks": lambda: _build.int32_device(a, q),
+        "allocation": lambda: torch.empty_like(q),
+        "lookup": lambda: entry._fn if entry._libs is _build._LIBS else None,
+        "device guard": lambda: dev.index == _build.current_device_index(),
+        "stream": lambda: _build.current_stream_ptr(dev.index),
+        "pointers": lambda: (a.data_ptr(), q.data_ptr(), out.data_ptr()),
+        "ctypes call": lambda: fn(*ptrs, stream),
+    }
+    rec = {"shapes": [list(a.shape), list(q.shape)],
+           "parts_us": {name: host_us(part) for name, part in parts.items()}}
+    rec["sum_us"] = sum(rec["parts_us"].values())
+    rec["whole_call_us"] = host_us(lambda: ss.searchsorted(a, q))
+    rec["torch_searchsorted_us"] = host_us(lambda: torch.searchsorted(a, q))
+    print(
+        f"searchsorted host breakdown at {rec['shapes']} (median us a call, "
+        f"{BREAKDOWN_BATCHES} batches of {BREAKDOWN_REPS}): "
+        + ", ".join(f"{n} {us:.2f}" for n, us in rec["parts_us"].items())
+        + f"; sum {rec['sum_us']:.2f}; whole call {rec['whole_call_us']:.2f}; "
+        f"torch.searchsorted {rec['torch_searchsorted_us']:.2f}"
+    )
+    return rec
 
 
 class CallRecorder:
@@ -700,7 +849,7 @@ def search_phase(card: str) -> list[dict]:
               f"{q['torch_ms']:.1f} ms scalar {q['scalar_ms']:.1f} ms")
 
     # where a fused query's time goes: one profiled pass of the 36 queries
-    wall_ms, dev = profile_pass(lambda: run_engine(engine, "fused"), tries=1)
+    wall_ms, dev, _ = profile_pass(lambda: run_engine(engine, "fused"))
     busy_ms = sum(dev.values())
     profile_rec = {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms if dev else None,
@@ -753,10 +902,10 @@ def search_phase(card: str) -> list[dict]:
         ]),
         "bound_ms": sum(r["bound_ms"] for r in round_recs),
     }
-    _, dev = profile_pass(lambda: [
+    want = expected_launches("fused_search", [(b, s) for _l, b, s in rounds])
+    device_ms, device_events = device_pass_ms(lambda: [
         fused_search.fused_search_batch(**b, semantics=s) for _l, b, s in rounds
-    ])
-    device_ms = kernel_device_ms(dev, "fused_search") if dev else None
+    ], want, "fused_search")
     big = max(round_recs, key=lambda r: r["bytes"])
     print(
         f"kernel==plain on all {len(round_recs)} main-path rounds; one pass of "
@@ -768,8 +917,7 @@ def search_phase(card: str) -> list[dict]:
     )
     print(
         "kernel device time over one pass of the main-path rounds (profiler): "
-        + (f"{device_ms:.4f} ms in {3 * len(rounds)} pass launches"
-           if device_ms is not None else "not measured (no device events)")
+        + device_text(device_ms, device_events, want)
     )
 
     # ---- the chained kernels vs plain --------------------------------- #
@@ -799,8 +947,13 @@ def search_phase(card: str) -> list[dict]:
             "library_ms": pass_ms([lambda a=a: library(*a) for _l, a in recorded])
             if library else None,
         }
-        _, dev = profile_pass(lambda: [kernel(*a) for _l, a in recorded])
-        dev_ms = kernel_device_ms(dev, name) if dev else None
+        n = len(recorded)
+        want = expected_launches(name, [a for _l, a in recorded])
+        dev_ms, dev_events = device_pass_ms(lambda: [kernel(*a) for _l, a in recorded],
+                                            want, name)
+        lib_dev_ms, lib_events = (
+            device_pass_ms(lambda: [library(*a) for _l, a in recorded], n)
+            if library else (None, {}))
         by = {"bytes": 0.0, "operations": 0.0}
         for r in recs:
             by[r["bound_by"]] += r["bound_ms"]
@@ -814,7 +967,9 @@ def search_phase(card: str) -> list[dict]:
             f"{passes['plain_ms']:.4f} ms library "
             + ("none" if library is None else f"{passes['library_ms']:.4f} ms")
             + f" bound {sum(by.values()):.5f} ms; device (profiler) "
-            + ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms")
+            + device_text(dev_ms, dev_events, want)
+            + ("" if library is None else
+               "; library device " + device_text(lib_dev_ms, lib_events, n))
             + f"; largest call {big['query']} {big['shapes']} kernel "
             f"{big['ms']:.4f} ms bound {big['bound_ms']:.5f} ms"
         )
@@ -828,16 +983,20 @@ def search_phase(card: str) -> list[dict]:
             ),
             "ms": passes["ms"], "plain_ms": passes["plain_ms"],
             "bound_ms": sum(by.values()), "device_ms": dev_ms,
+            "device_events": dev_events, "library_device_events": lib_events,
             "bound_by": max(by, key=by.get),
-            "library_ms": passes["library_ms"],
+            "library_ms": passes["library_ms"], "library_device_ms": lib_dev_ms,
             "matches_plain": True, "calls": len(recs),
         })
+
+    breakdown = launch_breakdown(*calls.calls["searchsorted"][0][1])
 
     OUT_DIR.mkdir(exist_ok=True)
     with open(OUT_DIR / "chip_smoke_rounds.json", "w") as f:
         json.dump({"card": card, "random": random_recs, "rounds": round_recs,
                    "chained": chained_recs, "main_path_profile": profile_rec,
-                   "per_query": per_query}, f, indent=1)
+                   "per_query": per_query, "searchsorted_breakdown": breakdown},
+                  f, indent=1)
 
     err = max(r["max_abs_err"] for r in random_recs + round_recs)
     fused_line = {
@@ -846,7 +1005,7 @@ def search_phase(card: str) -> list[dict]:
         "replaces": KERNELS["fused_search"].replaces, "launches": main_launches,
         "max_abs_err": err,
         "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-        "device_ms": device_ms,
+        "device_ms": device_ms, "device_events": device_events,
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in round_recs)
         else "operations",
         "library_ms": None,
@@ -869,6 +1028,7 @@ DECODE_TOL = 0.15  # tests/test_arch_smoke.py's decode-vs-prefill tolerance
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference kernel test's own
 # the decode_32k cell (configs/registry.py SHAPES) for one SmolLM-135M layer
 DECODE_32K = {"b": 128, "t": 32_768, "h": 9, "hk": 3, "hd": 64}
+DECODE_32K_PROFILED = 10  # calls in the profiled pass at that shape
 
 
 class DecodeRecorder:
@@ -935,13 +1095,18 @@ def sdpa_call(q, k, v, mask):
 
 
 def check_decode(args, dtype_name: str) -> dict:
-    """Kernel == plain within the tolerance on one call's inputs (raises
-    otherwise); the bound of the call."""
+    """Kernel == plain within the tolerance, and two kernel calls bit for
+    bit equal, on one call's inputs (raises otherwise); the bound of the
+    call."""
     import torch
 
     da = module("decode_attention")
     got, want = da.decode_attention(*args), da.decode_attention_plain(*args)
+    again = da.decode_attention(*args)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"decode_attention differs between two calls at "
+                             f"{[list(a.shape) for a in args]}")
     err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
     if not err <= KERNEL_TOL[dtype_name]:
         raise AssertionError(
@@ -1025,6 +1190,8 @@ def lm_phase() -> dict:
     from repro_torch.models import init_params
 
     da = module("decode_attention")
+    big = decode_32k_call()  # one call at the decode_32k cell's shape, one layer
+    torch.cuda.empty_cache()
     cfg = get_config(LM_ARCH)
     t0 = time.perf_counter()
     model = init_params(0, cfg, DEVICE)
@@ -1093,8 +1260,11 @@ def lm_phase() -> dict:
         "plain_ms": pass_ms([lambda a=a: da.decode_attention_plain(*a) for a in calls]),
         "library_ms": pass_ms([lambda a=a: sdpa_call(*a) for a in sdpa_args]),
     }
-    _, dev = profile_pass(lambda: [da.decode_attention(*a) for a in calls])
-    dev_ms = kernel_device_ms(dev, "decode_attention") if dev else None
+    want = expected_launches("decode_attention", calls)
+    dev_ms, dev_events = device_pass_ms(lambda: [da.decode_attention(*a) for a in calls],
+                                        want, "decode_attention")
+    lib_dev_ms, lib_events = device_pass_ms(lambda: [sdpa_call(*a) for a in sdpa_args],
+                                            len(calls))
     by = {"bytes": 0.0, "operations": 0.0}
     for r in recs["calls"]:
         by[r["bound_by"]] += r["bound_ms"]
@@ -1108,16 +1278,13 @@ def lm_phase() -> dict:
         f"{passes['plain_ms']:.4f} ms library (scaled_dot_product_attention, max abs err "
         f"{sdpa_err:.3g} against plain) {passes['library_ms']:.4f} ms bound "
         f"{sum(by.values()):.5f} ms ({max(by, key=by.get)}); device (profiler) "
-        + ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms")
+        + device_text(dev_ms, dev_events, want)
+        + "; library device " + device_text(lib_dev_ms, lib_events, len(calls))
     )
     del sdpa_args
 
-    # ---- one call at the decode_32k cell's shape, one SmolLM layer ------- #
-    big = decode_32k_call()
-
-    # where a decode step's time goes: one profiled plain run of 8 steps, last,
-    # since the profiler loses events in later passes after a trace this long
-    wall_ms, dev = profile_pass(lambda: launcher.serve(model, cfg, prompts, 9))
+    # where a decode step's time goes: one profiled plain run of 8 steps
+    wall_ms, dev, _ = profile_pass(lambda: launcher.serve(model, cfg, prompts, 9))
     busy_ms = sum(dev.values())
     profile_rec = {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms if dev else None,
@@ -1150,6 +1317,8 @@ def lm_phase() -> dict:
         "ms": passes["ms"], "plain_ms": passes["plain_ms"],
         "bound_ms": sum(by.values()), "bound_by": max(by, key=by.get),
         "library_ms": passes["library_ms"], "device_ms": dev_ms,
+        "device_events": dev_events, "library_device_ms": lib_dev_ms,
+        "library_device_events": lib_events,
         "matches_plain": True, "calls": len(calls),
         "decode_32k": big,
     }
@@ -1170,23 +1339,33 @@ def decode_32k_call() -> dict:
     args = (q, k, v, lens)
     r = check_decode(args, "bfloat16")
     r["ms"] = cuda_ms(lambda: da.decode_attention(*args))
-    _, dev = profile_pass(lambda: da.decode_attention(*args))
-    r["device_ms"] = kernel_device_ms(dev, "decode_attention") if dev else None
+    # device time: a profiled pass of several calls, divided
+    n = DECODE_32K_PROFILED
+    want = expected_launches("decode_attention", [args] * n)
+    ms, r["device_events"] = device_pass_ms(
+        lambda: [da.decode_attention(*args) for _ in range(n)], want, "decode_attention")
+    r["device_ms"] = None if ms is None else ms / n
     r["plain_ms"] = cuda_ms(lambda: da.decode_attention_plain(*args))
     sdpa_args = sdpa_inputs(*args)
     r["library_ms"] = cuda_ms(lambda: sdpa_call(*sdpa_args))
+    ms, r["library_device_events"] = device_pass_ms(
+        lambda: [sdpa_call(*sdpa_args) for _ in range(n)], n)
+    r["library_device_ms"] = None if ms is None else ms / n
     r["library_max_abs_err"] = float(
         (sdpa_call(*sdpa_args).float() - da.decode_attention_plain(*args).float()).abs().max())
     r["mean_len"] = float(lens.float().mean())
     print(
         f"decode_attention at decode_32k (B={b} T={t} H={h}/{hk} hd={hd} bf16, mean len "
         f"{r['mean_len']:.0f}): kernel {r['ms']:.4f} ms, device (profiler) "
-        + ("not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms")
-        + f", plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms (max abs err "
+        + device_text(r["device_ms"], r["device_events"], want)
+        + f", plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms (device "
+        + device_text(r["library_device_ms"], r["library_device_events"], n)
+        + ", max abs err "
         f"{r['library_max_abs_err']:.3g} against plain), bound {r['bound_ms']:.4f} ms "
         f"({r['bound_by']}, {r['bytes']} bytes); kernel max abs err {r['max_abs_err']:.3g}"
     )
     return r
+
 
 def main() -> int:
     import torch
@@ -1214,7 +1393,7 @@ def main() -> int:
     with ThreadPoolExecutor(len(modules)) as pool:
         built = list(pool.map(build, modules))
     for mod, (lib, secs) in zip(modules, built):
-        _build.load(mod._SOURCE, mod._FUNCTIONS)
+        _build.load(mod._SOURCE)
         print(f"build: {lib.relative_to(ROOT)} in {secs:.2f} s")
     print(f"build: all {len(modules)} kernels in {time.perf_counter() - t0:.2f} s")
 

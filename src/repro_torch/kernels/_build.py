@@ -9,9 +9,11 @@ and an edited source is rebuilt.  Nothing here runs when a module is
 imported: a host without ``nvcc`` imports every kernel module and runs its
 plain PyTorch version on CPU tensors.
 
-:func:`launch` is the launch sequence the kernel wrappers share, and
-:func:`check_int32` their input check: a kernel reads raw int32 pointers,
-so anything else must be refused before launch.
+:class:`Entry` is the launch path the kernel wrappers share: each C entry
+point is bound once and then called with plain ints, on the caller's
+current stream.  :func:`int32_device` is the search wrappers' input check:
+a kernel reads raw int32 pointers, so anything else must be refused before
+launch.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[Path, ctypes.CDLL] = {}
+_INT32 = torch.int32
 _LOCK = threading.Lock()
 
 
@@ -82,55 +85,95 @@ def build(source: Path) -> Path:
     return out
 
 
-def load(source: Path, functions: dict[str, list]) -> ctypes.CDLL:
-    """The library built from ``source``, loaded once per process.
-
-    ``functions`` maps each C entry point to its ctypes argument types; every
-    entry point returns an ``int`` (the first ``cudaError_t`` it saw).
-    """
+def load(source: Path) -> ctypes.CDLL:
+    """The library built from ``source``, loaded once per process into
+    ``_LIBS``."""
     with _LOCK:
         lib = _LIBS.get(source)
         if lib is None:
-            lib = ctypes.CDLL(str(build(source)))
-            for name, argtypes in functions.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _LIBS[source] = lib
+            lib = _LIBS[source] = ctypes.CDLL(str(build(source)))
         return lib
 
 
-def launch(
-    source: Path, functions: dict[str, list], entry: str, dev: torch.device,
-    *args,
-) -> None:
-    """Call the C entry point ``entry`` of ``source``'s library on ``dev``.
+# The launch path's two private torch calls, bound once here.  The public
+# forms cost more than the launch they feed (chip_smoke.py's host
+# breakdown, PERF.md); tests/test_torch_chained_cuda.py pins each to its
+# public form, on the default stream and on a side stream.  A build of torch
+# without CUDA has neither (None here): only CUDA tensors reach them.
 
-    Tensors in ``args`` pass as their data pointers, other values as they
-    are; the current stream of ``dev`` goes last.  The kernel runs on that
-    stream, without synchronising.  Raises on the CUDA error it returns.
+#: ``current_stream_ptr(index)``: the raw ``cudaStream_t`` of device
+#: ``index``'s current stream, ``torch._C._cuda_getCurrentRawStream``, the
+#: call behind ``torch.cuda.current_stream(index).cuda_stream`` (which also
+#: builds a ``torch.cuda.Stream`` object).
+current_stream_ptr = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+#: ``current_device_index()``: the current CUDA device,
+#: ``torch._C._cuda_getDevice``, the call behind
+#: ``torch.cuda.current_device()`` (which also checks lazy init first; a
+#: caller here already holds a CUDA tensor).
+current_device_index = getattr(torch._C, "_cuda_getDevice", None)
+
+
+class Entry:
+    """One C entry point of a kernel library, bound at its first call.
+
+    ``argtypes`` are the ctypes types of its arguments before the stream,
+    which always comes last; it returns an ``int``, the first
+    ``cudaError_t`` it saw.  The first call builds and loads the library
+    and binds the function; later calls reach the bound ctypes function
+    with no lock, table lookup or ``getattr``.  A binding holds while
+    ``_LIBS`` is the table it was loaded into: a new table (a fresh start,
+    as the no-library tests make) unbinds every entry.
     """
-    lib = load(source, functions)
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, entry)(*ptrs, stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} failed: cudaError {err}")
+
+    __slots__ = ("source", "name", "argtypes", "_fn", "_libs")
+
+    def __init__(self, source: Path, name: str, argtypes: list):
+        self.source, self.name, self.argtypes = source, name, argtypes
+        self._fn = self._libs = None
+
+    def _bind(self):
+        fn = getattr(load(self.source), self.name)
+        fn.argtypes = [*self.argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        self._fn, self._libs = fn, _LIBS
+        return fn
+
+    def __call__(self, index: int, *args) -> None:
+        """Launch on the current stream of CUDA device ``index``, without
+        synchronising.
+
+        ``args`` are plain ints and floats (pointers as ``data_ptr()``).  A
+        device guard is entered only when ``index`` is not the current
+        device.  Raises on the CUDA error the entry point returns.
+        """
+        fn = self._fn if self._libs is _LIBS else self._bind()
+        if index == current_device_index():
+            err = fn(*args, current_stream_ptr(index))
+        else:
+            with torch.cuda.device(index):
+                err = fn(*args, current_stream_ptr(index))
+        if err:
+            raise RuntimeError(f"{self.name} failed: cudaError {err}")
 
 
-def check_int32(**tensors: torch.Tensor) -> torch.device:
-    """Every tensor int32, contiguous and on one device; return that device."""
-    device = None
-    for name, t in tensors.items():
-        if t.dtype != torch.int32:
-            raise ValueError(f"{name} must be int32, got {t.dtype}")
+def int32_device(*tensors: torch.Tensor) -> int:
+    """Every tensor int32, contiguous and on the first one's device; return
+    that device's CUDA index, -1 on the CPU.
+
+    Plain attribute compares (``get_device``, ``is`` on the dtype), since a
+    chained call is host-bound; a fault raises ``ValueError`` naming the
+    input.
+    """
+    first = tensors[0]
+    index = first.get_device()
+    for i, t in enumerate(tensors):
+        if t.dtype is not _INT32:
+            raise ValueError(f"input {i} must be int32, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if device is None:
-            device = t.device
-        elif t.device != device:
-            raise ValueError(f"{name} is on {t.device}, the others on {device}")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"the kernels run on cpu or cuda, not {device}")
-    return device
+            raise ValueError(f"input {i} must be contiguous")
+        if t.get_device() != index or (index < 0 and t.device != first.device):
+            raise ValueError(f"input {i} is on {t.device}, input 0 on {first.device}")
+    if index < 0 and not first.is_cpu:
+        raise ValueError(f"the kernels run on cpu or cuda, not {first.device}")
+    return index

@@ -18,16 +18,14 @@ import ctypes
 
 import torch
 
-from ._build import CSRC, check_int32, launch
+from ._build import CSRC, Entry, int32_device
 
 _SOURCE = CSRC / "elca_segsum.cu"
-_FUNCTIONS = {
-    "elca_segsum_launch": [
-        ctypes.c_void_p, ctypes.c_int,  # ca mi
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # par nd mj k
-        ctypes.c_void_p, ctypes.c_void_p,  # out stream
-    ],
-}
+_LAUNCH = Entry(_SOURCE, "elca_segsum_launch", [
+    ctypes.c_void_p, ctypes.c_int,  # ca mi
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # par nd mj k
+    ctypes.c_void_p,  # out
+])
 
 LAUNCHES = 0  # kernel launches in this process (see module docstring)
 
@@ -58,17 +56,17 @@ def elca_child_sums(
     synchronising.
     """
     global LAUNCHES
-    dev = check_int32(ca=ca, par=par, nd=nd)
+    index = int32_device(ca, par, nd)
     if ca.dim() != 1 or par.dim() != 1 or nd.dim() != 2 or nd.shape[1] != len(par):
         raise ValueError(
             f"want ca [MI], par [MJ], nd [K, MJ]; got {tuple(ca.shape)}, "
             f"{tuple(par.shape)}, {tuple(nd.shape)}"
         )
-    if dev.type == "cpu":
+    if index < 0:
         return elca_child_sums_plain(ca, par, nd)
     k, mj = nd.shape
-    out = torch.empty((k, ca.numel()), dtype=torch.int32, device=dev)
-    launch(_SOURCE, _FUNCTIONS, "elca_segsum_launch", dev,
-           ca, ca.numel(), par, nd, mj, k, out)
+    out = torch.empty((k, ca.numel()), dtype=torch.int32, device=ca.device)
+    _LAUNCH(index, ca.data_ptr(), ca.numel(), par.data_ptr(), nd.data_ptr(), mj, k,
+            out.data_ptr())
     LAUNCHES += 1
     return out

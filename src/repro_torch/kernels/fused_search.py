@@ -22,20 +22,18 @@ import ctypes
 import numpy as np
 import torch
 
-from ._build import BUILD_DIR, CSRC, launch  # noqa: F401  (BUILD_DIR re-exported)
+from ._build import BUILD_DIR, CSRC, Entry, int32_device  # noqa: F401  (BUILD_DIR re-exported)
 from .shapes import INT_PAD
 
 _SEMANTICS = {"slca": 0, "elca": 1, "ca": 2}
 
 _SOURCE = CSRC / "fused_search.cu"
-_FUNCTIONS = {
-    "fused_search_launch": (
-        [ctypes.c_void_p] * 6  # ids0 pid0 nd0 other_ids other_nd n0
-        + [ctypes.c_int] * 5  # rows m0 k1 mo semantics
-        + [ctypes.c_void_p] * 6  # keep_ids keep_mask ca ndo cnt sums
-        + [ctypes.c_void_p]  # stream
-    ),
-}
+_LAUNCH = Entry(
+    _SOURCE, "fused_search_launch",
+    [ctypes.c_void_p] * 6  # ids0 pid0 nd0 other_ids other_nd n0
+    + [ctypes.c_int] * 5  # rows m0 k1 mo semantics
+    + [ctypes.c_void_p] * 6,  # keep_ids keep_mask ca ndo cnt sums
+)
 
 LAUNCHES = 0  # kernel launches in this process (see module docstring)
 
@@ -99,29 +97,25 @@ def fused_search_batch_plain(
 # --------------------------------------------------------------------------- #
 
 
-def _check(ids0, pid0, ndesc0, other_ids, other_ndesc, n0) -> None:
-    if ids0.dim() != 2 or ids0.dtype != torch.int32 or not ids0.is_contiguous():
-        raise ValueError("ids0 must be a contiguous [R, m0] int32 tensor")
+def _check(ids0, pid0, ndesc0, other_ids, other_ndesc, n0) -> int:
+    """The packed batch's shapes; returns ``int32_device``'s index."""
+    index = int32_device(ids0, pid0, ndesc0, other_ids, other_ndesc, n0)
+    if ids0.dim() != 2:
+        raise ValueError(f"ids0 must be [R, m0], got shape {tuple(ids0.shape)}")
     if other_ids.dim() != 3:
-        raise ValueError(f"other_ids must be [R, k-1, mo], got {tuple(other_ids.shape)}")
+        raise ValueError(f"other_ids must be [R, k-1, mo], got shape {tuple(other_ids.shape)}")
     rows, m0 = ids0.shape
     k1, mo = other_ids.shape[1], other_ids.shape[2]
-    shapes = {
-        "pid0": (pid0, (rows, m0)),
-        "ndesc0": (ndesc0, (rows, m0)),
-        "other_ids": (other_ids, (rows, k1, mo)),
-        "other_ndesc": (other_ndesc, (rows, k1, mo)),
-        "n0": (n0, (rows,)),
-    }
-    for name, (t, want) in shapes.items():
-        if t.dtype != torch.int32:
-            raise ValueError(f"{name} must be int32, got {t.dtype}")
-        if tuple(t.shape) != want:
+    for name, t, want in (
+        ("pid0", pid0, (rows, m0)),
+        ("ndesc0", ndesc0, (rows, m0)),
+        ("other_ids", other_ids, (rows, k1, mo)),
+        ("other_ndesc", other_ndesc, (rows, k1, mo)),
+        ("n0", n0, (rows,)),
+    ):
+        if t.shape != want:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, want {want}")
-        if t.device != ids0.device:
-            raise ValueError(f"{name} is on {t.device}, ids0 on {ids0.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    return index
 
 
 def fused_search_batch(
@@ -145,19 +139,17 @@ def fused_search_batch(
     global LAUNCHES
     if semantics not in _SEMANTICS:
         raise ValueError(f"unknown semantics {semantics!r}")
-    _check(ids0, pid0, ndesc0, other_ids, other_ndesc, n0)
-    rows, m0 = ids0.shape
-    k1, mo = other_ids.shape[1], other_ids.shape[2]
-    if ids0.device.type == "cpu":
+    index = _check(ids0, pid0, ndesc0, other_ids, other_ndesc, n0)
+    if index < 0:
         return fused_search_batch_plain(
             ids0, pid0, ndesc0, other_ids, other_ndesc, n0, semantics
         )
-    if ids0.device.type != "cuda":
-        raise ValueError(f"fused_search_batch runs on cpu or cuda, not {ids0.device}")
+    rows, m0 = ids0.shape
+    k1, mo = other_ids.shape[1], other_ids.shape[2]
     dev = ids0.device
     elca = semantics == "elca"
-    keep_ids = torch.empty((rows, m0), dtype=torch.int32, device=dev)
-    keep_mask = torch.empty((rows, m0), dtype=torch.bool, device=dev)
+    keep_ids = torch.empty_like(ids0)
+    keep_mask = torch.empty_like(ids0, dtype=torch.bool)
     # scratch, one buffer of [R, m0] planes, initialised by the kernel:
     # CA mask, CA-child count, and for ELCA the k-1 gathered other-list
     # NDesc rows and the k parent sums
@@ -165,11 +157,11 @@ def fused_search_batch(
     scratch = torch.empty((planes, rows * m0), dtype=torch.int32, device=dev)
     ca, cnt, ndo = scratch[0], scratch[1], scratch[2:]
     sums = scratch[2 + k1 :] if elca else scratch[2:]
-    launch(
-        _SOURCE, _FUNCTIONS, "fused_search_launch", dev,
-        ids0, pid0, ndesc0, other_ids, other_ndesc, n0,
+    _LAUNCH(
+        index,
+        *(t.data_ptr() for t in (ids0, pid0, ndesc0, other_ids, other_ndesc, n0)),
         rows, m0, k1, mo, _SEMANTICS[semantics],
-        keep_ids, keep_mask, ca, ndo, cnt, sums,
+        *(t.data_ptr() for t in (keep_ids, keep_mask, ca, ndo, cnt, sums)),
     )
     LAUNCHES += 1
     return keep_ids, keep_mask

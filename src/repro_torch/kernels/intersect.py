@@ -16,16 +16,14 @@ import ctypes
 
 import torch
 
-from ._build import CSRC, check_int32, launch
+from ._build import CSRC, Entry, int32_device
 
 _SOURCE = CSRC / "intersect.cu"
-_FUNCTIONS = {
-    "intersect_launch": [
-        ctypes.c_void_p, ctypes.c_int,  # a na
-        ctypes.c_void_p, ctypes.c_int,  # q nq
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # found pos stream
-    ],
-}
+_LAUNCH = Entry(_SOURCE, "intersect_launch", [
+    ctypes.c_void_p, ctypes.c_int,  # a na
+    ctypes.c_void_p, ctypes.c_int,  # q nq
+    ctypes.c_void_p, ctypes.c_void_p,  # found pos
+])
 
 LAUNCHES = 0  # kernel launches in this process (see module docstring)
 
@@ -55,16 +53,16 @@ def intersect_membership(
     the current stream, without synchronising.
     """
     global LAUNCHES
-    dev = check_int32(a=a, q=q)
+    index = int32_device(a, q)
     if a.dim() != 1 or q.dim() != 1:
         raise ValueError(
             f"want 1-D a and q, got {tuple(a.shape)} and {tuple(q.shape)}"
         )
-    if dev.type == "cpu":
+    if index < 0:
         return intersect_membership_plain(a, q)
-    found = torch.empty(q.shape, dtype=torch.bool, device=dev)
-    pos = torch.empty(q.shape, dtype=torch.int32, device=dev)
-    launch(_SOURCE, _FUNCTIONS, "intersect_launch", dev,
-           a, a.numel(), q, q.numel(), found, pos)
+    found = torch.empty_like(q, dtype=torch.bool)
+    pos = torch.empty_like(q)
+    _LAUNCH(index, a.data_ptr(), a.numel(), q.data_ptr(), q.numel(),
+            found.data_ptr(), pos.data_ptr())
     LAUNCHES += 1
     return found, pos

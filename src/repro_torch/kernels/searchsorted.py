@@ -16,16 +16,15 @@ import ctypes
 
 import torch
 
-from ._build import CSRC, check_int32, launch
+from ._build import CSRC, Entry, int32_device
 
 _SOURCE = CSRC / "searchsorted.cu"
-_FUNCTIONS = {
-    "searchsorted_launch": (
-        [ctypes.c_void_p] * 2  # a q
-        + [ctypes.c_int] * 3  # rows m nq
-        + [ctypes.c_void_p] * 2  # out stream
-    ),
-}
+_LAUNCH = Entry(
+    _SOURCE, "searchsorted_launch",
+    [ctypes.c_void_p] * 2  # a q
+    + [ctypes.c_int] * 3  # rows m nq
+    + [ctypes.c_void_p],  # out
+)
 
 LAUNCHES = 0  # kernel launches in this process (see module docstring)
 
@@ -43,15 +42,15 @@ def searchsorted(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     the current stream, without synchronising.
     """
     global LAUNCHES
-    dev = check_int32(a=a, q=q)
-    if a.dim() != 2 or q.dim() != 2 or q.shape[0] != a.shape[0]:
+    index = int32_device(a, q)
+    if a.ndim != 2 or q.ndim != 2 or q.shape[0] != a.shape[0]:
         raise ValueError(
             f"want a [B, M] and q [B, Q], got {tuple(a.shape)} and {tuple(q.shape)}"
         )
-    if dev.type == "cpu":
+    if index < 0:
         return searchsorted_plain(a, q)
-    out = torch.empty(q.shape, dtype=torch.int32, device=dev)
-    launch(_SOURCE, _FUNCTIONS, "searchsorted_launch", dev,
-           a, q, *a.shape, q.shape[1], out)
+    rows, m = a.shape
+    out = torch.empty_like(q)  # [B, Q] int32, as q
+    _LAUNCH(index, a.data_ptr(), q.data_ptr(), rows, m, q.shape[1], out.data_ptr())
     LAUNCHES += 1
     return out

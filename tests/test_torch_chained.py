@@ -24,7 +24,7 @@ from repro_torch.core import brute
 from repro_torch.core.idlist import IDList
 from repro_torch.core.search_vec import ca_search_batch
 from repro_torch.data import generate_discogs_tree
-from repro_torch.kernels import elca_segsum, intersect, ops, ref, searchsorted
+from repro_torch.kernels import _build, elca_segsum, intersect, ops, ref, searchsorted
 from repro_torch.kernels.shapes import INT_PAD, pad_to
 
 
@@ -154,6 +154,19 @@ def test_wrappers_refuse_what_the_kernels_cannot_take():
         ops.intersect_membership(a.to("meta"), a.to("meta"))
     with pytest.raises(ValueError, match="is on"):
         ops.intersect_membership(a, a.to("meta"))
+
+
+def test_int32_device_returns_the_index_and_names_the_fault():
+    a = torch.arange(8, dtype=torch.int32)
+    assert _build.int32_device(a, a, a.reshape(2, 4)) == -1  # the CPU
+    with pytest.raises(ValueError, match="input 1 must be int32"):
+        _build.int32_device(a, a.long())
+    with pytest.raises(ValueError, match="input 2 must be contiguous"):
+        _build.int32_device(a, a, a.reshape(2, 4).t())
+    with pytest.raises(ValueError, match="input 1 is on meta"):
+        _build.int32_device(a, a.to("meta"))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        _build.int32_device(a.to("meta"))
 
 
 # --------------------------------------------------------------------------- #

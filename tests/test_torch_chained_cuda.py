@@ -144,3 +144,30 @@ def test_cuda_tensor_without_a_kernel_raises(cuda, name, monkeypatch, tmp_path):
     assert module.LAUNCHES == launches
     _call(name, "cpu")  # the CPU still takes the plain version
 
+
+def test_current_stream_ptr_is_the_current_stream(cuda):
+    """The launch path's private lookups name torch's current device and
+    stream."""
+    assert _build.current_device_index() == torch.cuda.current_device()
+    assert _build.current_stream_ptr(cuda.index or 0) == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert _build.current_stream_ptr(cuda.index or 0) == side.cuda_stream
+    assert _build.current_stream_ptr(cuda.index or 0) != side.cuda_stream
+
+
+def test_searchsorted_on_a_side_stream(cuda):
+    rng = np.random.default_rng(15)
+    a = np.full((64, 4096), INT_PAD, np.int32)
+    for r in range(64):
+        row = sorted_unique(rng, int(rng.integers(1, 4097)), hi=40_960)
+        a[r, : row.size] = row[:4096]
+    q = rng.integers(-5, 40_965, size=(64, 300)).astype(np.int32)
+    a, q = on(cuda, a), on(cuda, q)
+    want = ss.searchsorted_plain(a, q)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = ss.searchsorted(a, q)
+    side.synchronize()
+    assert torch.equal(got, want)

@@ -6,6 +6,8 @@ it), ``repro.kernels.ref.decode_attention_ref`` and the port's
 ``decode_attention`` on CPU tensors, which is its plain version.
 Tolerances are the reference test's own: 2e-5 in float32, 2e-2 in bfloat16.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -109,3 +111,103 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
                             v[..., :20].contiguous(), lens)
     with pytest.raises(ValueError, match="does not fit"):
         da.decode_attention(q[:, :3].contiguous(), k, v, lens)
+
+
+def test_cpu_views_at_any_offset_take_the_plain_version():
+    """The 16-byte start the kernel needs binds only on the card."""
+    q, k, v, lens = _both(*_inputs(2, 64, 4, 2, 32, seed=5), "float32")[1]
+    flat = torch.zeros(k.numel() + 1)
+    flat[1:] = k.reshape(-1)
+    shifted = flat[1:].view(k.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    assert torch.equal(da.decode_attention(q, shifted, v, lens),
+                       da.decode_attention(q, k, v, lens))
+
+
+# --------------------------------------------------------------------------- #
+# The kernel's split of T across blocks (split_plan), checked without a card
+# --------------------------------------------------------------------------- #
+
+MAIN = (8, 3, 3)  # SmolLM-135M serving: B 8, Hk 3, rep 3
+CHUNK = da.split_plan(*MAIN, 1088)[0]
+
+
+@pytest.mark.parametrize("t", [0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 1088, 32_768])
+@pytest.mark.parametrize("b,hk,rep", [MAIN, (128, 3, 3), (1, 3, 3), (2, 8, 3), (1, 1, 12)])
+def test_split_plan_covers_t_once(b, hk, rep, t):
+    chunk, splits = da.split_plan(b, hk, rep, t)
+    assert chunk % da.CHUNK_MIN == 0 and da.CHUNK_MIN <= chunk <= da.CHUNK_MAX
+    covered = np.concatenate(
+        [np.arange(s * chunk, min((s + 1) * chunk, t)) for s in range(splits)])
+    np.testing.assert_array_equal(covered, np.arange(t))
+    assert splits == 1 or (splits - 1) * chunk < t  # no split is empty of positions
+
+
+@pytest.mark.parametrize("t", [0, 1, 17, CHUNK - 1, CHUNK])
+def test_split_plan_short_t_is_one_split(t):
+    assert da.split_plan(*MAIN, t)[1] == 1
+
+
+def test_split_plan_fills_the_card_at_the_main_path_shape():
+    """At B 8, Hk 3, rep 3, T 1,088 and the serving run's lengths
+    (1,025-1,087), at least 2 x 132 blocks hold valid positions."""
+    b, hk, rep = MAIN
+    chunk, splits = da.split_plan(b, hk, rep, 1088)
+    groups = -(-rep // da.rows_per_block(rep))
+    for lens in (np.full(b, 1025), np.linspace(1025, 1087, b).astype(int)):
+        busy = sum(min(splits, -(-int(n) // chunk)) for n in lens) * hk * groups
+        assert busy >= 2 * da.SMS
+
+
+def test_split_plan_partials_are_small_at_decode_32k():
+    """decode_32k (B 128, T 32,768, SmolLM-135M's 9 / 3 heads of 64, bf16):
+    the partials written and read back stay within 5% of the K/V bytes of a
+    cache half full (the cell's lengths are uniform in [1, T])."""
+    b, t, h, hk, hd = 128, 32_768, 9, 3, 64
+    chunk, splits = da.split_plan(b, hk, h // hk, t)
+    partial_bytes = 2 * splits * b * h * (hd + 2) * 4  # written, then read
+    kv_bytes = 2 * b * (t // 2) * hk * hd * 2
+    assert splits > 1 and partial_bytes <= 0.05 * kv_bytes
+
+
+def _split_and_combine(q, k, v, lens, chunk, splits):
+    """The kernel's algorithm in plain PyTorch: each split's partial (m, l,
+    acc) over its chunk of the valid prefix, in log2 units, an empty chunk
+    giving m = -inf and l = 0; then the merge in split order."""
+    b, h, hd = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, hk, h // hk, hd) * (math.log2(math.e) / math.sqrt(hd))
+    scores = torch.einsum("bgrd,btgd->bgrt", qg, k.float())
+    pos = torch.arange(t)
+    parts = []
+    for s in range(splits):
+        valid = ((pos >= s * chunk) & (pos < (s + 1) * chunk)
+                 & (pos[None] < lens[:, None].long()))[:, None, None]
+        sc = scores.masked_fill(~valid, -math.inf)
+        m = sc.amax(dim=-1)  # -inf on an empty chunk
+        p = torch.where(valid, torch.exp2(sc - m.clamp(min=-1e30)[..., None]), 0.0)
+        parts.append((m, p.sum(dim=-1), torch.einsum("bgrt,btgd->bgrd", p, v.float())))
+    top = torch.stack([torch.where(l > 0, m, -math.inf) for m, l, _ in parts]).amax(dim=0)
+    num = torch.zeros(b, hk, h // hk, hd)
+    den = torch.zeros(b, hk, h // hk)
+    for m, l, acc in parts:
+        w = torch.where(l > 0, torch.exp2(m - top), 0.0)
+        num += w[..., None] * acc
+        den += w * l
+    return (num / den.clamp(min=1e-30)[..., None]).reshape(b, h, hd).to(q.dtype)
+
+
+@pytest.mark.parametrize("b,t,h,hk,hd,lens", [
+    (5, 1000, 9, 3, 64, [0, CHUNK - 1, CHUNK, CHUNK + 1, 1000]),  # T no multiple of C
+    (2, 1088, 9, 3, 64, [1025, 1087]),  # the serving run's lengths
+    (1, 700, 12, 1, 80, [650]),  # rep 12, hd 80, many splits
+    (3, 64, 10, 2, 32, [0, 1, 64]),  # one split
+])
+def test_split_and_combine_equal_plain(b, t, h, hk, hd, lens):
+    q, k, v, lens = _inputs(b, t, h, hk, hd, seed=t + h, lens=lens)
+    _, tt = _both(q, k, v, lens, "float32")
+    chunk, splits = da.split_plan(b, hk, h // hk, t)
+    got = _split_and_combine(*tt, chunk, splits)
+    want = da.decode_attention_plain(*tt)
+    torch.testing.assert_close(got, want, rtol=2e-6, atol=2e-6)
+    assert torch.count_nonzero(got[lens == 0]) == 0

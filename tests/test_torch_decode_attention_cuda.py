@@ -96,6 +96,28 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     assert da.LAUNCHES == launches
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_must_start_on_16_bytes(cuda, dtype):
+    """K and V are copied in 16-byte pieces: a contiguous view at another
+    offset is refused before launch; one at a 16-byte offset runs."""
+    q, k, v, lens = _inputs(cuda, 2, 64, 4, 2, 32, dtype)
+    per16 = 16 // k.element_size()
+
+    def view_at(x, offset):
+        flat = torch.zeros(x.numel() + per16, dtype=dtype, device=cuda)
+        flat[offset:offset + x.numel()] = x.reshape(-1)
+        return flat[offset:offset + x.numel()].view(x.shape)
+
+    launches = da.LAUNCHES
+    for name, bad in (("k", (view_at(k, 1), v)), ("v", (k, view_at(v, 1)))):
+        assert bad[0].is_contiguous() and bad[1].is_contiguous(), name
+        with pytest.raises(ValueError, match="16-byte"):
+            da.decode_attention(q, *bad, lens)
+    assert da.LAUNCHES == launches
+    _check(da.decode_attention(q, view_at(k, per16), view_at(v, per16), lens),
+           da.decode_attention_plain(q, k, v, lens), dtype)
+
+
 def test_cuda_tensor_without_a_kernel_raises(cuda, monkeypatch, tmp_path):
     """A kernel that cannot be built raises; it never falls back to plain."""
     monkeypatch.setattr(_build, "_LIBS", {})
@@ -108,3 +130,59 @@ def test_cuda_tensor_without_a_kernel_raises(cuda, monkeypatch, tmp_path):
         da.decode_attention(q, k, v, lens)
     assert da.LAUNCHES == launches
     da.decode_attention(q.cpu(), k.cpu(), v.cpu(), lens.cpu())  # the CPU takes the plain version
+
+
+# ---- the split-T design: chunk edges, many splits, more reps, streams -------- #
+
+CHUNK = da.split_plan(8, 3, 3, 1088)[0]  # the serving shape's chunk
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lengths_at_the_chunk_edges(cuda, dtype):
+    """Lengths C - 1, C, C + 1 and T, with T no multiple of C."""
+    t = 1000
+    assert t % CHUNK and da.split_plan(5, 3, 3, t)[0] == CHUNK
+    q, k, v, lens = _inputs(cuda, 5, t, 9, 3, 64, dtype, seed=11,
+                            lens=[CHUNK - 1, CHUNK, CHUNK + 1, t, 0])
+    _check(da.decode_attention(q, k, v, lens), da.decode_attention_plain(q, k, v, lens),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_one_row_at_32k_takes_many_splits(cuda, dtype):
+    t = 32_768
+    assert da.split_plan(1, 3, 3, t)[1] > 100
+    for lens in ([t], [20_001], [1]):
+        q, k, v, n = _inputs(cuda, 1, t, 9, 3, 64, dtype, seed=12, lens=lens)
+        _check(da.decode_attention(q, k, v, n), da.decode_attention_plain(q, k, v, n), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 80])
+@pytest.mark.parametrize("rep", [5, 7, 12])
+def test_config_reps_and_head_dims(cuda, dtype, hd, rep):
+    """The reps and head dims the model configs use beyond the tests above."""
+    q, k, v, lens = _inputs(cuda, 3, 777, rep * 2, 2, hd, dtype, seed=rep * hd,
+                            lens=[0, 300, 777])
+    _check(da.decode_attention(q, k, v, lens), da.decode_attention_plain(q, k, v, lens),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_repeat_calls_are_bit_identical(cuda, dtype):
+    q, k, v, lens = _inputs(cuda, 8, 1088, 9, 3, 64, dtype, seed=13,
+                            lens=[1025, 1030, 1040, 1050, 1060, 1070, 1080, 1087])
+    first = da.decode_attention(q, k, v, lens)
+    for _ in range(3):
+        assert torch.equal(da.decode_attention(q, k, v, lens), first)
+
+
+def test_launch_on_a_side_stream(cuda):
+    q, k, v, lens = _inputs(cuda, 8, 1088, 9, 3, 64, torch.bfloat16, seed=14)
+    want = da.decode_attention_plain(q, k, v, lens)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = da.decode_attention(q, k, v, lens)
+    side.synchronize()
+    _check(got, want, torch.bfloat16)
