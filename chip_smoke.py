@@ -14,7 +14,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      indexes with ``backend="fused"`` through ``engine.query``, then a
      ``QueryService(backend="fused")`` answering the 18 DAG queries
      submitted together.  The kernel's launch count is zeroed just before
-     and read just after;
+     and read just after; the calls per route (rows / tiles) and each
+     batch's shape are printed;
   4. every answer equals the port's ``"scalar"`` backend (the paper's host
      algorithms) and the ``"torch"`` backend on the same engine;
   5. the chained path on the same engine: warmed on Q4-Q9, then one counted
@@ -22,22 +23,28 @@ Phases (any failure exits non-zero, and no result line is printed):
      ``QueryService(backend="chained")`` answering the 18 DAG queries in one
      window; the searchsorted, intersect and elca_segsum launch counts are
      zeroed just before and read just after, each must be > 0, and every
-     answer must equal ``"scalar"``;
+     answer must equal ``"scalar"``; the sizes of the windows the intersect
+     kernel stages on those calls are printed;
   6. the fused kernel against its plain PyTorch version, byte for byte, on
      seeded random packed batches (k = 1..4 x slca/elca/ca, all-pad rows,
-     single-element lists, R up to 64) and on every batch the counted fused
-     path launched (engine and service alike, kept as they were packed),
-     with CUDA-event times of each batch and of one pass of them all, the
-     plain version's times and the bound;
+     single-element lists, R up to 64, rows past the rows route) and on
+     every batch the counted fused path launched (engine and service alike,
+     kept as they were packed, and each forced down every route that can
+     take it too), with CUDA-event times of each batch and of one pass of
+     them all, the plain version's times, the bound, the device time of
+     each device op, and passes with the rows route's limit at 0, 2,048,
+     4,096 and 8,192 slots;
   7. each chained kernel against its plain version the same way, on seeded
      random shapes and on every call the counted chained path made, with
-     the time of one ``torch.searchsorted`` call on the same inputs beside
-     the searchsorted and intersect kernels (no single PyTorch call
-     computes the ELCA child sums), and the library pass's device time;
-     then a host-clock breakdown of one main-path ``searchsorted`` call:
-     the checks, the allocation, the entry lookup, the device guard, the
-     stream lookup, the pointers and the ctypes call, each timed on its
-     own, beside the whole call and ``torch.searchsorted``;
+     the time of ``torch.searchsorted`` on the same inputs beside the
+     searchsorted and intersect kernels (for intersect one call per (list,
+     L0) pair; no single PyTorch call computes the ELCA child sums), and the
+     library pass's device time; then a host-clock breakdown of one
+     main-path ``searchsorted`` call: the checks, the allocation, the entry
+     lookup, the device guard, the stream lookup, the pointers and the
+     ctypes call, each timed on its own, beside the whole call and
+     ``torch.searchsorted``; and the same of one main-path
+     ``fused_search`` call of each route;
   8. first, one decode-attention call at the decode_32k cell's shape (B
      128, T 32,768) against its plain version, timed by CUDA events, by a
      profiled pass of 10 and beside ``scaled_dot_product_attention``; then
@@ -96,22 +103,27 @@ class Kernel(NamedTuple):
     # plain version; the chained path calls it by this name in kernels.ops
     replaces: str  # the TPU kernel, file:line
     device_ops: tuple[str, ...]  # its device operations, as the profiler names them
-    library: str | None  # the torch function computing the same, if one does
+    library: str | None  # the function computing the same, if one does: a
+    # torch function's name, or a function of this script (library_args maps
+    # the wrapper's arguments to its arguments)
 
 
 KERNELS = {
+    # the rows route's one kernel, and the tiles route's three
     "fused_search": Kernel(
         "fused_search_batch", "src/repro/kernels/fused_search.py:62",
-        ("membership_kernel", "parent_kernel", "keep_kernel"), None,
+        ("fused_rows_kernel", "membership_kernel", "parent_kernel", "keep_kernel"),
+        None,
     ),
     "searchsorted": Kernel(
         "searchsorted", "src/repro/kernels/searchsorted.py:18",
         ("searchsorted_kernel",), "searchsorted",
     ),
-    # the library call gives the positions; found is one compare more
+    # the library calls give the positions, one torch.searchsorted per (list,
+    # L0) pair; found is one compare more, and the NDesc one gather more
     "intersect": Kernel(
-        "intersect_membership", "src/repro/kernels/intersect.py:36",
-        ("intersect_kernel",), "searchsorted",
+        "intersect_lists", "src/repro/kernels/intersect.py:36",
+        ("intersect_lists_kernel",), "searchsorted_pairs",
     ),
     # no single call: the plain version is searchsorted + index_add_
     "elca_segsum": Kernel(
@@ -133,14 +145,44 @@ def module(name: str):
 
 
 def functions(name: str):
-    """(kernel wrapper, plain version, library call or None) of a kernel."""
+    """(kernel wrapper, plain version, library call or None) of a kernel; the
+    library call takes ``library_args`` of the wrapper's arguments."""
     import torch
 
     k, mod = KERNELS[name], module(name)
-    return (
-        getattr(mod, k.wrapper), getattr(mod, k.wrapper + "_plain"),
-        getattr(torch, k.library) if k.library else None,
-    )
+    library = None
+    if k.library:
+        library = globals().get(k.library) or getattr(torch, k.library)
+    return getattr(mod, k.wrapper), getattr(mod, k.wrapper + "_plain"), library
+
+
+def list_views(buf, table) -> list:
+    """The lists of an ``intersect_lists`` call: [(ids, ndesc)], L0 first."""
+    return [(buf[i : i + n], buf[d : d + n]) for i, d, n in table.tolist()]
+
+
+def library_args(name: str, args) -> tuple:
+    """The library call's arguments for a wrapper call's (made once, outside
+    any timing): for intersect, L0's ids and the other lists' ids."""
+    if name != "intersect":
+        return args
+    (ids0, _), *others = list_views(args[0], args[1])
+    return ids0, tuple(ids for ids, _ in others)
+
+
+def searchsorted_pairs(ids0, lists) -> list:
+    """One ``torch.searchsorted`` of L0 in each other list: the positions
+    ``intersect_lists`` computes, by the library, one call per pair."""
+    import torch
+
+    return [torch.searchsorted(ids, ids0) for ids in lists]
+
+
+def library_calls(name: str, calls) -> int:
+    """Library launches of a pass over ``calls`` (the wrapper's arguments)."""
+    if name == "intersect":
+        return sum(args[1].shape[0] - 1 for args in calls)
+    return len(calls)
 
 
 def card_line() -> str:
@@ -156,14 +198,16 @@ def card_line() -> str:
 # --------------------------------------------------------------------------- #
 
 
-def random_item(rng, k: int, max_nodes: int = 4000):
-    """k ancestor-closed IDLists over one random tree (parents have lower ids)."""
+def random_item(rng, k: int, max_nodes: int = 4000, min_nodes: int = 5,
+                near: int | None = 8):
+    """k ancestor-closed IDLists over one random tree (parents have lower ids:
+    one of the ``near`` before, or any before when None)."""
     from repro_torch.core.idlist import IDList, make_pidpos
 
-    n = int(rng.integers(5, max_nodes))
+    n = int(rng.integers(min_nodes, max_nodes))
     par = np.full(n, -1, np.int64)
     for i in range(1, n):
-        par[i] = int(rng.integers(max(0, i - 8), i))
+        par[i] = int(rng.integers(0 if near is None else max(0, i - near), i))
     lists = []
     for _ in range(k):
         nd: dict[int, int] = {}
@@ -205,6 +249,9 @@ def random_batches():
     items = [random_item(rng, 2) for _ in range(64)]
     for sem in ("slca", "elca", "ca"):
         cases.append((f"R=64 k=2 {sem}", items, sem, 1))
+    items = [random_item(rng, 3, 60_000, 20_000, near=None) for _ in range(2)]
+    for sem in ("slca", "elca", "ca"):  # rows past the rows route's 2,048 slots
+        cases.append((f"long rows k=3 {sem}", items, sem, 1))
     return cases
 
 
@@ -281,14 +328,13 @@ def expected_launches(name: str, calls) -> dict[str, int]:
             batch, sem = args
             rows, m0 = batch["ids0"].shape
             if rows and m0:
-                n["membership_kernel"] += 1
-                n["parent_kernel"] += sem != "ca"
-                n["keep_kernel"] += 1
+                for op, count in fused_launches(fused_route(batch, sem), sem).items():
+                    n[op] += count
         elif name == "searchsorted":
             a, q = args
             n["searchsorted_kernel"] += a.shape[0] > 0 and q.shape[1] > 0
         elif name == "intersect":
-            n["intersect_kernel"] += args[1].numel() > 0
+            n["intersect_lists_kernel"] += args[2] > 0
         elif name == "elca_segsum":
             ca, par, nd = args
             if ca.numel() and nd.shape[0]:
@@ -304,8 +350,8 @@ def expected_launches(name: str, calls) -> dict[str, int]:
     return n
 
 
-def device_pass_ms(fn, expect, name: str | None = None,
-                   tries: int = 3) -> tuple[float | None, dict[str, int]]:
+def device_pass_ms(fn, expect, name: str | None = None, tries: int = 3,
+                   ops_ms: dict | None = None) -> tuple[float | None, dict[str, int]]:
     """(device ms of one pass, {device op: events recorded}) from
     ``profile_pass``.
 
@@ -316,7 +362,8 @@ def device_pass_ms(fn, expect, name: str | None = None,
     reported only from a pass whose every expected event the profiler
     recorded, no more and no fewer; a pass recorded in part is profiled
     again, up to ``tries`` times, and after that the time is None (not
-    measured) beside the counts of the last try.
+    measured) beside the counts of the last try.  ``ops_ms``, when given
+    with a kernel's ``name``, receives the ms of each of its device ops.
     """
     for _ in range(tries):
         _, dev, events = profile_pass(fn)
@@ -329,6 +376,9 @@ def device_pass_ms(fn, expect, name: str | None = None,
             complete = bool(dev) and events[max(dev, key=dev.get)] == expect
             total = sum(dev.values())
         if complete:
+            if ops_ms is not None and name is not None:
+                ops_ms.update({p: sum(ms for op, ms in dev.items() if p in op)
+                               for p in KERNELS[name].device_ops})
             return total, counts
     return None, counts
 
@@ -387,6 +437,12 @@ def least_time(n_bytes: int, n_ops: int) -> tuple[float, str, int, int]:
     return t_ops, "operations", n_bytes, n_ops
 
 
+def fused_route(batch: dict, semantics: str) -> str:
+    """The fused kernel's route for a packed batch (by its shape alone)."""
+    m0, k = batch["ids0"].shape[1], batch["other_ids"].shape[1] + 1
+    return module("fused_search").route(m0, k, semantics)
+
+
 def plain_of(batch: dict) -> dict:
     """The packed batch without ``other_n``, which the plain version lacks."""
     return {n: t for n, t in batch.items() if n != "other_n"}
@@ -410,7 +466,7 @@ def check_kernel(batch: dict, semantics: str) -> dict:
         "rows": int(rows), "k": int(batch["other_ids"].shape[1] + 1),
         "m0": int(m0), "mo": int(batch["other_ids"].shape[2]),
         "semantics": semantics, "max_abs_err": err,
-        "kept": int(mask.sum()),
+        "kept": int(mask.sum()), "route": fused_route(batch, semantics),
     }
     bound_ms, bound_by, n_bytes, n_ops = bound_of(batch, semantics)
     rec.update(
@@ -423,9 +479,143 @@ def check_kernel(batch: dict, semantics: str) -> dict:
     return rec
 
 
+def check_routes(batch: dict, semantics: str) -> list[str]:
+    """The fused kernel forced down each route that can take this batch (the
+    rows route only where the row's state fits), each held against the
+    plain version (raises otherwise); returns the routes checked."""
+    import torch
+
+    fs = module("fused_search")
+    m0, k = batch["ids0"].shape[1], batch["other_ids"].shape[1] + 1
+    want_ids, want_mask = fs.fused_search_batch_plain(**plain_of(batch), semantics=semantics)
+    checked = [w for w in fs.ROUTES if w == "tiles" or fs.rows_fit(m0, k, semantics)]
+    for which in checked:
+        ids, mask = fs._launch(batch["ids0"].device.index, *batch.values(), semantics, which)
+        torch.cuda.synchronize()
+        if not (torch.equal(ids, want_ids) and torch.equal(mask, want_mask)):
+            raise AssertionError(f"fused route {which} != plain ({semantics})")
+    return checked
+
+
+def fused_launches(which: str, semantics: str) -> dict[str, int]:
+    """{device op: launches} of one fused_search call down route ``which``."""
+    if which == "rows":
+        return {"fused_rows_kernel": 1}
+    return {"membership_kernel": 1, "parent_kernel": int(semantics != "ca"), "keep_kernel": 1}
+
+
+ROUTE_THRESHOLDS = (0, 2048, 4096, 8192)  # longest row sent to the rows route
+
+
+def route_threshold_passes(rounds) -> dict:
+    """One pass of the main-path batches with the rows route taking the
+    rows of m0 up to each of ROUTE_THRESHOLDS (where they fit) and the tiles
+    route the rest: CUDA-event ms and profiler device ms of each pass, the
+    evidence for the wrapper's own threshold (fused_search._ROW_MAX_M0)."""
+    fs = module("fused_search")
+    out = {}
+    for limit in ROUTE_THRESHOLDS:
+        calls, want = [], dict.fromkeys(KERNELS["fused_search"].device_ops, 0)
+        for _l, b, s in rounds:
+            m0, k = b["ids0"].shape[1], b["other_ids"].shape[1] + 1
+            which = "rows" if m0 <= limit and fs.rows_fit(m0, k, s) else "tiles"
+            calls.append(lambda b=b, s=s, w=which: fs._launch(
+                b["ids0"].device.index, *b.values(), s, w))
+            for op, count in fused_launches(which, s).items():
+                want[op] += count
+        ms = pass_ms(calls)
+        dev_ms, events = device_pass_ms(lambda calls=calls: [c() for c in calls], want,
+                                        "fused_search")
+        out[limit] = {"ms": ms, "device_ms": dev_ms, "rows_calls": want["fused_rows_kernel"]}
+        print(f"fused pass with the rows route up to m0={limit}: "
+              f"{want['fused_rows_kernel']} rows-route calls, CUDA events {ms:.4f} ms, "
+              "device " + device_text(dev_ms, events, want))
+    return out
+
+
+def batch_shapes(rounds) -> list[dict]:
+    """Route, R, k, m0, mo and the L0 lengths of each recorded fused batch."""
+    out = []
+    for _label, batch, sem in rounds:
+        rows, m0 = batch["ids0"].shape
+        n0 = batch["n0"].cpu().numpy()
+        out.append({"route": fused_route(batch, sem), "rows": int(rows),
+                    "k": int(batch["other_ids"].shape[1] + 1), "m0": int(m0),
+                    "mo": int(batch["other_ids"].shape[2]), "max_n0": int(n0.max()),
+                    "rows_used": int((n0 > 0).sum()), "sum_n0": int(n0.sum())})
+    return out
+
+
+def fused_breakdown(batch: dict, semantics: str) -> dict:
+    """Host µs of each part of one ``fused_search_batch`` call on this batch,
+    each part timed on its own as the wrapper does it, beside the whole
+    call."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    fs = module("fused_search")
+    rows, m0 = batch["ids0"].shape
+    k1, mo = batch["other_ids"].shape[1], batch["other_ids"].shape[2]
+    index = batch["ids0"].device.index
+    which = fs.route(m0, k1 + 1, semantics)
+    fs.fused_search_batch(**batch, semantics=semantics)  # binds the entry
+    keep_ids, keep_mask = fs._launch(index, *batch.values(), semantics, which)
+    entry = fs._LAUNCH
+    fn, stream = entry._fn, _build.current_stream_ptr(index)
+    scratch = ((0,) * 5, None) if which == "rows" else fs.scratch_of(batch["ids0"], k1, semantics)
+    ptr_scratch = scratch[0]  # scratch[1], the buffer, lives as long as this call
+    ptrs = (*(t.data_ptr() for t in batch.values()), rows, m0, k1, mo,
+            fs._SEMANTICS[semantics], fs.ROUTES.index(which),
+            keep_ids.data_ptr(), keep_mask.data_ptr(), *ptr_scratch)
+    ids0 = batch["ids0"]
+    parts = {
+        "checks": lambda: fs._check(*batch.values()),
+        "route": lambda: fs.route(m0, k1 + 1, semantics),
+        "allocation": lambda: (torch.empty_like(ids0),
+                               torch.empty_like(ids0, dtype=torch.bool),
+                               None if which == "rows" else fs.scratch_of(ids0, k1, semantics)),
+        "device guard": lambda: index == _build.current_device_index(),
+        "stream": lambda: _build.current_stream_ptr(index),
+        "pointers": lambda: [t.data_ptr() for t in batch.values()],
+        "ctypes call": lambda: fn(*ptrs, stream),
+    }
+    rec = {"route": which, "shape": [int(rows), int(k1 + 1), int(m0), int(mo)],
+           "parts_us": {name: host_us(part) for name, part in parts.items()}}
+    rec["sum_us"] = sum(rec["parts_us"].values())
+    rec["whole_call_us"] = host_us(lambda: fs.fused_search_batch(**batch, semantics=semantics))
+    print(
+        f"fused_search host breakdown at R={rows} k={k1 + 1} m0={m0} mo={mo} "
+        f"{semantics} ({which} route; median us a call, {BREAKDOWN_BATCHES} batches "
+        f"of {BREAKDOWN_REPS}): "
+        + ", ".join(f"{n} {us:.2f}" for n, us in rec["parts_us"].items())
+        + f"; sum {rec['sum_us']:.2f}; whole call {rec['whole_call_us']:.2f}"
+    )
+    return rec
+
+
 # --------------------------------------------------------------------------- #
 # The chained kernels vs plain
 # --------------------------------------------------------------------------- #
+
+
+def intersect_windows(calls, tile: int = 256) -> dict:
+    """The windows the intersect kernel stages on these calls: for each tile
+    of ``tile`` L0 entries and each other list, the ids of the list between
+    the tile's first and last id (what csrc/intersect.cu stages whole up to
+    kStage - 3 = 4,093 ids, and samples above)."""
+    sizes = []
+    for _label, (buf, table, n) in calls:
+        (ids0, _), *others = list_views(buf, table)
+        ids0 = ids0.cpu().numpy()
+        first, last = ids0[::tile], ids0[np.minimum(np.arange(0, n, tile) + tile, n) - 1]
+        for ids, _ in others:
+            ids = ids.cpu().numpy()
+            sizes += (np.searchsorted(ids, last, "right") - np.searchsorted(ids, first)).tolist()
+    sizes = np.array(sizes)
+    return {"windows": int(sizes.size), "median": float(np.median(sizes)),
+            "p90": float(np.percentile(sizes, 90)), "max": int(sizes.max()),
+            "sampled": int((sizes > 4093).sum()), "empty": int((sizes == 0).sum())}
 
 
 def log2_steps(n: int) -> int:
@@ -441,9 +631,9 @@ def chained_bound(name: str, args) -> tuple[float, str, int, int]:
     never the INT_PAD tail a bucket adds (a binary search touches the tail
     only at its probes); of ``nd`` the columns whose parent is a CA.
     Operations, counted on these inputs: one binary search of the valid
-    prefix per query (searchsorted; intersect, plus one compare for found);
-    for the child sums one binary search per entry with a parent and k adds
-    per parent found.
+    prefix per query (searchsorted; intersect: of each other list per L0
+    entry, plus one compare for found); for the child sums one binary search
+    per entry with a parent and k adds per parent found.
     """
     import torch
 
@@ -455,9 +645,13 @@ def chained_bound(name: str, args) -> tuple[float, str, int, int]:
         n_bytes = 4 * (sum(n_valid) + 2 * q.numel())
         n_ops = q.shape[1] * sum(log2_steps(n) for n in n_valid)
     elif name == "intersect":
-        a, q = args
-        n_bytes = 4 * a.numel() + 9 * q.numel()  # pos int32 + found bool out
-        n_ops = q.numel() * (log2_steps(a.numel()) + 1)
+        _buf, table, n = args
+        lens = [length for _i, _d, length in table.tolist()]  # L0 first
+        # ids of every list; NDesc: L0's, and of each other list the entries
+        # L0's positions select (at most n); out: ca (bool) and nd [k, n]
+        n_bytes = (4 * sum(lens) + 4 * (n + sum(min(n, m) for m in lens[1:]))
+                   + n + 4 * len(lens) * n)
+        n_ops = n * sum(log2_steps(m) + 1 for m in lens[1:])
     else:
         ca, par, nd = args
         k = nd.shape[0]
@@ -469,6 +663,14 @@ def chained_bound(name: str, args) -> tuple[float, str, int, int]:
         n_bytes = 4 * (mi_valid + par.numel() + k * n_hit + k * mi)
         n_ops = int(has_par.sum()) * log2_steps(mi_valid) + n_hit * k
     return least_time(n_bytes, n_ops)
+
+
+def shapes_of(name: str, args) -> list:
+    """A call's shapes: each argument's, or for intersect the lists'
+    lengths, L0 first."""
+    if name == "intersect":
+        return [length for _i, _d, length in args[1].tolist()]
+    return [list(a.shape) for a in args]
 
 
 def check_chained(name: str, args) -> dict:
@@ -489,13 +691,51 @@ def check_chained(name: str, args) -> dict:
         default=0,
     )
     bound_ms, bound_by, n_bytes, n_ops = chained_bound(name, args)
+    largs = library_args(name, args)
     return {
-        "shapes": [list(a.shape) for a in args], "max_abs_err": err,
+        "shapes": shapes_of(name, args), "max_abs_err": err,
         "ms": cuda_ms(lambda: kernel(*args)),
         "plain_ms": cuda_ms(lambda: plain(*args)),
-        "library_ms": cuda_ms(lambda: library(*args)) if library else None,
+        "library_ms": cuda_ms(lambda: library(*largs)) if library else None,
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes, "ops": n_ops,
     }
+
+
+def intersect_lists_case(rng, n0: int, others, mode: str) -> list:
+    """[(ids, ndesc)] of a random ``intersect_lists`` call, L0 first: L0 of
+    n0 ids in all the other lists (``"all"``), in none (``"none"``) or
+    partly (``"mixed"``)."""
+    hi = 4 * max(n0, *others) + 100
+    if mode == "none":  # L0 odd, the others even
+        l0 = np.unique(rng.integers(0, hi // 2, size=n0)) * 2 + 1
+        rest = [np.unique(rng.integers(0, hi // 2, size=m)) * 2 for m in others]
+    else:
+        l0 = np.unique(rng.integers(0, hi, size=n0))
+        keep = l0 if mode == "all" else l0[rng.random(l0.size) < 0.7]
+        rest = [np.union1d(keep, rng.integers(0, hi, size=max(m - keep.size, 0)))
+                for m in others]
+    return [(ids.astype(np.int32), rng.integers(1, 100, size=ids.size).astype(np.int32))
+            for ids in [l0, *rest]]
+
+
+def packed_lists(rng, lists):
+    """(buf, table, n) on the card, packed as ``run_query_chained`` packs
+    them but with 0-3 ints before each part, so lists start at any 16-byte
+    phase."""
+    import torch
+
+    parts, table, off = [], [], 0
+    for ids, nd in lists:
+        row = []
+        for x in (ids, nd):
+            gap = int(rng.integers(0, 4))
+            parts += [np.full(gap, -7, np.int32), x]
+            row.append(off + gap)
+            off += gap + x.size
+        table.append((*row, ids.size))
+    buf = np.concatenate(parts + [np.ravel(table).astype(np.int32)])
+    buf = torch.from_numpy(buf).to(DEVICE)
+    return buf, buf[off:].view(len(lists), 3), int(lists[0][0].size)
 
 
 def chained_random_cases():
@@ -511,16 +751,16 @@ def chained_random_cases():
         return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(DEVICE)
 
     cases = []
-    for na, nq in ((1, 1), (513, 511), (1000, 100), (100, 1000), (5000, 5000),
-                   (0, 7), (60_001, 20_001)):
-        a = sorted_unique(na, 10**6)
-        pool = np.unique(np.concatenate([
-            rng.choice(a, size=min(nq, a.size), replace=False),
-            rng.integers(0, 10**6, size=nq),
-        ]))
-        # below and above the range, sorted, nq queries in all
-        q = np.unique(np.concatenate([pool[: max(nq - 2, 0)], [-5, 2**31 - 2]]))
-        cases.append(("intersect", f"na={a.size} nq={q.size}", (on(a), on(q[:nq]))))
+    for n0, others, mode in (
+        (1, (1,), "all"), (1, (1, 1, 1), "none"), (5, (1, 1), "mixed"),
+        (300, (300, 900), "all"), (500, (700,), "none"),
+        (5000, (5000, 8000, 20_000), "mixed"),  # windows staged whole
+        (100, (100_000,), "mixed"),  # windows sampled
+        (20_001, (60_001, 200_000), "mixed"),  # both
+    ):
+        lists = intersect_lists_case(rng, n0, others, mode)
+        cases.append(("intersect", f"lengths {[len(l) for l, _ in lists]} {mode}",
+                      packed_lists(rng, lists)))
     for rows, m, nq in ((1, 1, 1), (1, 513, 511), (8, 4096, 1000),
                         (64, 4096, 300), (64, 65_536, 64), (7, 65_536, 20_001)):
         a = np.full((rows, m), np.iinfo(np.int32).max, np.int32)
@@ -613,23 +853,33 @@ class CallRecorder:
     Inside ``with CallRecorder() as rec`` each kernel wrapper the chained
     path calls through ``repro_torch.kernels.ops`` (``KERNELS``) is wrapped:
     its inputs go to ``rec.calls[kernel]`` as ``(rec.label, args)``, then the
-    wrapper runs as it would.
+    wrapper runs as it would.  ``rec.queries`` counts the
+    ``ops.run_query_chained`` calls that reach the intersection (no list
+    empty).
     """
 
     def __init__(self):
         self.label = ""
         self.calls: dict[str, list] = {name: [] for name in CHAINED}
+        self.queries = 0
 
     def __enter__(self):
         from repro_torch.kernels import ops
 
         self._orig = {name: getattr(ops, KERNELS[name].wrapper) for name in CHAINED}
+        self._query = ops.run_query_chained
         for name in CHAINED:
             def wrapped(*args, _name=name, _fn=self._orig[name]):
                 self.calls[_name].append((self.label, args))
                 return _fn(*args)
 
             setattr(ops, KERNELS[name].wrapper, wrapped)
+
+        def query(lists, *args, **kwargs):
+            self.queries += bool(lists) and all(len(l) for l in lists)
+            return self._query(lists, *args, **kwargs)
+
+        ops.run_query_chained = query
         return self
 
     def __exit__(self, *exc):
@@ -637,6 +887,7 @@ class CallRecorder:
 
         for name in CHAINED:
             setattr(ops, KERNELS[name].wrapper, self._orig[name])
+        ops.run_query_chained = self._query
 
 
 # --------------------------------------------------------------------------- #
@@ -739,6 +990,30 @@ def pass_ms(calls) -> float:
     return cuda_ms(lambda: [call() for call in calls])
 
 
+def paired_pass_ms(calls_a, calls_b) -> tuple[float, float]:
+    """Median ms of one pass of ``calls_a`` and of ``calls_b``, timed in
+    turns (a, b, b, a, ...), each pass between one pair of CUDA events: the
+    passes are host-bound, and the host's speed drifts within a run."""
+    import torch
+
+    def one(calls) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for call in calls:
+            call()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    one(calls_a), one(calls_b)  # warm
+    times = {0: [], 1: []}
+    for rep in range(TIMING_REPS):
+        for which in ((0, 1) if rep % 2 == 0 else (1, 0)):
+            times[which].append(one(calls_a if which == 0 else calls_b))
+    return float(np.median(times[0])), float(np.median(times[1]))
+
+
 def search_phase(card: str) -> list[dict]:
     """The fused and chained search paths, checked and measured; returns
     their kernel lines."""
@@ -794,6 +1069,12 @@ def search_phase(card: str) -> list[dict]:
         f"service batches {svc_stats.get('batches')} launches "
         f"{svc_stats.get('launches')}"
     )
+    shapes = batch_shapes(rounds)
+    routes = {r: sum(b["route"] == r for b in shapes) for r in fused_search.ROUTES}
+    print(f"fused_search calls per route on the main path: {json.dumps(routes)}; "
+          "batches (route R k m0 mo max-n0 rows-used sum-n0): " + "; ".join(
+              f"{b['route']} {b['rows']} {b['k']} {b['m0']} {b['mo']} {b['max_n0']} "
+              f"{b['rows_used']} {b['sum_n0']}" for b in shapes))
 
     # ---- answers against the scalar and torch backends ---------------- #
     scalar, scalar_lat = run_engine(engine, "scalar")
@@ -824,11 +1105,20 @@ def search_phase(card: str) -> list[dict]:
             raise AssertionError(
                 f"{count} {name} launches but {len(calls.calls[name])} calls recorded"
             )
+    if chained_launches["intersect"] != calls.queries:
+        raise AssertionError(
+            f"{chained_launches['intersect']} intersect launches for {calls.queries} "
+            "chained queries that reach the intersection: want one each"
+        )
     assert_equal(chained, scalar, "chained engine")
     assert_equal(chained_served, scalar, "chained service")
+    windows = intersect_windows(calls.calls["intersect"])
+    print(f"intersect windows on the chained path (tiles of 256 L0 entries x other "
+          f"lists): {json.dumps(windows)}")
     print(
         f"chained path: {len(chained)} engine + {len(chained_served)} service "
-        f"queries equal scalar; launches {json.dumps(chained_launches)}; "
+        f"queries equal scalar; launches {json.dumps(chained_launches)} "
+        f"({calls.queries} run_query_chained calls reach the intersection); "
         f"service batches {chained_svc.get('batches')} launches "
         f"{chained_svc.get('launches')}"
     )
@@ -875,19 +1165,20 @@ def search_phase(card: str) -> list[dict]:
         random_recs.append(r)
         print(
             f"kernel==plain {label}: R={r['rows']} k={r['k']} m0={r['m0']} "
-            f"mo={r['mo']} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
+            f"mo={r['mo']} kernel {r['ms']:.4f} ms ({r['route']}) plain {r['plain_ms']:.4f} ms "
             f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
         )
     round_recs = []
     for label, batch, sem in rounds:
         r = check_kernel(batch, sem)
         r["query"] = label
+        r["routes_checked"] = check_routes(batch, sem)
         round_recs.append(r)
         print(
             f"kernel==plain round {label}: R={r['rows']} k={r['k']} "
-            f"m0={r['m0']} mo={r['mo']} kernel {r['ms']:.4f} ms plain "
+            f"m0={r['m0']} mo={r['mo']} kernel {r['ms']:.4f} ms ({r['route']}) plain "
             f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.5f} ms "
-            f"({r['bound_by']})"
+            f"({r['bound_by']}); forced down {'/'.join(r['routes_checked'])}: == plain"
         )
     tot = {
         "ms": pass_ms([
@@ -903,9 +1194,10 @@ def search_phase(card: str) -> list[dict]:
         "bound_ms": sum(r["bound_ms"] for r in round_recs),
     }
     want = expected_launches("fused_search", [(b, s) for _l, b, s in rounds])
+    device_ops_ms = {}
     device_ms, device_events = device_pass_ms(lambda: [
         fused_search.fused_search_batch(**b, semantics=s) for _l, b, s in rounds
-    ], want, "fused_search")
+    ], want, "fused_search", ops_ms=device_ops_ms)
     big = max(round_recs, key=lambda r: r["bytes"])
     print(
         f"kernel==plain on all {len(round_recs)} main-path rounds; one pass of "
@@ -918,11 +1210,14 @@ def search_phase(card: str) -> list[dict]:
     print(
         "kernel device time over one pass of the main-path rounds (profiler): "
         + device_text(device_ms, device_events, want)
+        + f"; by device op {json.dumps(device_ops_ms)}"
     )
+    threshold_passes = route_threshold_passes(rounds)
 
     # ---- the chained kernels vs plain --------------------------------- #
     chained_recs = {name: {"random": [], "calls": []} for name in CHAINED}
-    for name, label, args in chained_random_cases():
+    random_cases = chained_random_cases()
+    for name, label, args in random_cases:
         r = check_chained(name, args)
         r["case"] = label
         chained_recs[name]["random"].append(r)
@@ -932,6 +1227,11 @@ def search_phase(card: str) -> list[dict]:
             f"{r['plain_ms']:.4f} ms library {lib} bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']})"
         )
+    random_windows = intersect_windows(
+        [(label, args) for name, label, args in random_cases if name == "intersect"])
+    print(f"intersect windows of the random cases: {json.dumps(random_windows)}")
+    if not random_windows["sampled"]:
+        raise AssertionError("no random intersect case took the sampled route")
     chained_lines = []
     for name in CHAINED:
         kernel, plain, library = functions(name)
@@ -941,18 +1241,20 @@ def search_phase(card: str) -> list[dict]:
             r = check_chained(name, args)
             r["query"] = label
             recs.append(r)
-        passes = {
-            "ms": pass_ms([lambda a=a: kernel(*a) for _l, a in recorded]),
-            "plain_ms": pass_ms([lambda a=a: plain(*a) for _l, a in recorded]),
-            "library_ms": pass_ms([lambda a=a: library(*a) for _l, a in recorded])
-            if library else None,
-        }
-        n = len(recorded)
+        largs = [library_args(name, a) for _l, a in recorded]
+        kernel_calls = [lambda a=a: kernel(*a) for _l, a in recorded]
+        passes = {"plain_ms": pass_ms([lambda a=a: plain(*a) for _l, a in recorded])}
+        if library:  # in turns, so that both see the same host
+            passes["ms"], passes["library_ms"] = paired_pass_ms(
+                kernel_calls, [lambda a=a: library(*a) for a in largs])
+        else:
+            passes["ms"], passes["library_ms"] = pass_ms(kernel_calls), None
+        n = library_calls(name, [a for _l, a in recorded])
         want = expected_launches(name, [a for _l, a in recorded])
         dev_ms, dev_events = device_pass_ms(lambda: [kernel(*a) for _l, a in recorded],
                                             want, name)
         lib_dev_ms, lib_events = (
-            device_pass_ms(lambda: [library(*a) for _l, a in recorded], n)
+            device_pass_ms(lambda: [library(*a) for a in largs], n)
             if library else (None, {}))
         by = {"bytes": 0.0, "operations": 0.0}
         for r in recs:
@@ -990,12 +1292,20 @@ def search_phase(card: str) -> list[dict]:
         })
 
     breakdown = launch_breakdown(*calls.calls["searchsorted"][0][1])
+    fused_breakdowns = [
+        fused_breakdown(b, s) for which in fused_search.ROUTES
+        for b, s in [next(((b, s) for _l, b, s in rounds if fused_route(b, s) == which),
+                          (None, None))] if b is not None
+    ]
 
     OUT_DIR.mkdir(exist_ok=True)
     with open(OUT_DIR / "chip_smoke_rounds.json", "w") as f:
         json.dump({"card": card, "random": random_recs, "rounds": round_recs,
                    "chained": chained_recs, "main_path_profile": profile_rec,
-                   "per_query": per_query, "searchsorted_breakdown": breakdown},
+                   "per_query": per_query, "searchsorted_breakdown": breakdown,
+                   "fused_breakdowns": fused_breakdowns, "fused_batches": shapes,
+                   "intersect_windows": windows,
+                   "intersect_random_windows": random_windows},
                   f, indent=1)
 
     err = max(r["max_abs_err"] for r in random_recs + round_recs)
@@ -1010,7 +1320,8 @@ def search_phase(card: str) -> list[dict]:
         else "operations",
         "library_ms": None,
         "matches_plain": True,
-        "rounds": len(round_recs),
+        "rounds": len(round_recs), "routes": routes,
+        "device_ops_ms": device_ops_ms, "route_threshold_passes": threshold_passes,
     }
     return [fused_line, *chained_lines]
 

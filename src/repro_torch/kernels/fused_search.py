@@ -11,9 +11,14 @@ For CUDA tensors it launches the hand-written kernel in
 ``ctypes``); for CPU tensors it runs :func:`fused_search_batch_plain`, the
 same function in plain PyTorch.  There is no fallback between the two: a
 CUDA tensor either reaches the kernel or raises.  No shape is capped, so
-every ``m0`` bucket the PlanCache produces runs here.
+every ``m0`` bucket the PlanCache produces runs here.  :func:`route` picks
+the kernel's route from the batch's shape alone: ``"rows"`` (one block per
+row, the row's state in shared memory, one launch, no scratch) or
+``"tiles"`` (longer rows spread over blocks, three launches, scratch in
+device memory).
 
-``LAUNCHES`` counts kernel launches (plain-version calls do not count).
+``LAUNCHES`` counts wrapper calls that launch the kernel, one per call
+whatever the route (plain-version calls do not count).
 """
 from __future__ import annotations
 
@@ -30,10 +35,17 @@ _SEMANTICS = {"slca": 0, "elca": 1, "ca": 2}
 _SOURCE = CSRC / "fused_search.cu"
 _LAUNCH = Entry(
     _SOURCE, "fused_search_launch",
-    [ctypes.c_void_p] * 6  # ids0 pid0 nd0 other_ids other_nd n0
-    + [ctypes.c_int] * 5  # rows m0 k1 mo semantics
-    + [ctypes.c_void_p] * 6,  # keep_ids keep_mask ca ndo cnt sums
+    [ctypes.c_void_p] * 7  # ids0 pid0 nd0 other_ids other_nd n0 other_n
+    + [ctypes.c_int] * 6  # rows m0 k1 mo semantics route
+    + [ctypes.c_void_p] * 7,  # keep_ids keep_mask ca ndo cnt sums ppos
 )
+
+ROUTES = ("rows", "tiles")  # the C entry point's route numbers, in order
+# the rows route's shared memory, as csrc/fused_search.cu lays it out
+_STAGE_INTS = 4096  # search.cuh kStage: two staging buffers of this many ints
+_ROW_THREADS = 512
+_ROW_MAX_M0 = 2048  # the longest row the wrapper sends the rows route
+_SMEM_MAX = 232_448  # shared memory one block can have on Hopper (227 KB)
 
 LAUNCHES = 0  # kernel launches in this process (see module docstring)
 
@@ -97,9 +109,10 @@ def fused_search_batch_plain(
 # --------------------------------------------------------------------------- #
 
 
-def _check(ids0, pid0, ndesc0, other_ids, other_ndesc, n0) -> int:
+def _check(ids0, pid0, ndesc0, other_ids, other_ndesc, n0, other_n) -> int:
     """The packed batch's shapes; returns ``int32_device``'s index."""
-    index = int32_device(ids0, pid0, ndesc0, other_ids, other_ndesc, n0)
+    tensors = (ids0, pid0, ndesc0, other_ids, other_ndesc, n0)
+    index = int32_device(*tensors, *(() if other_n is None else (other_n,)))
     if ids0.dim() != 2:
         raise ValueError(f"ids0 must be [R, m0], got shape {tuple(ids0.shape)}")
     if other_ids.dim() != 3:
@@ -112,10 +125,33 @@ def _check(ids0, pid0, ndesc0, other_ids, other_ndesc, n0) -> int:
         ("other_ids", other_ids, (rows, k1, mo)),
         ("other_ndesc", other_ndesc, (rows, k1, mo)),
         ("n0", n0, (rows,)),
+        ("other_n", other_n, (rows, k1)),
     ):
-        if t.shape != want:
+        if t is not None and t.shape != want:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, want {want}")
     return index
+
+
+def rows_fit(m0: int, k: int, semantics: str) -> bool:
+    """Whether the rows route's shared memory for rows of ``m0`` slots and
+    ``k`` lists fits in one block: what ``csrc/fused_search.cu::row_smem``
+    computes, two staging buffers, the windows of each (tile, list), the
+    ids, the count (SLCA) or the k-1 gathered NDesc and k sums (ELCA), and a
+    CA byte per slot."""
+    k1 = k - 1
+    threads = _ROW_THREADS if m0 >= _ROW_THREADS else max(64, -(-m0 // 32) * 32)
+    jobs = -(-m0 // threads) * k1
+    ints = 2 * _STAGE_INTS + 2 * jobs + m0
+    ints += {"slca": m0, "elca": (2 * k1 + 1) * m0, "ca": 0}[semantics]
+    return 4 * ints + m0 <= _SMEM_MAX
+
+
+def route(m0: int, k: int, semantics: str) -> str:
+    """The kernel's route for a batch of rows of ``m0`` slots and ``k``
+    lists: ``"rows"`` when one block does a row quickly (``m0`` at most
+    2,048: four tiles of 512) and its state fits (:func:`rows_fit`), else
+    ``"tiles"``."""
+    return "rows" if m0 <= _ROW_MAX_M0 and rows_fit(m0, k, semantics) else "tiles"
 
 
 def fused_search_batch(
@@ -125,8 +161,8 @@ def fused_search_batch(
     other_ids: torch.Tensor,  # [R, k-1, mo] int32 ascending rows, INT_PAD tail
     other_ndesc: torch.Tensor,  # [R, k-1, mo] int32 (0 pad)
     n0: torch.Tensor,  # [R] int32 valid lengths of L0
-    other_n: torch.Tensor | None = None,  # [R, k-1]: part of a packed batch;
-    # not read, since INT_PAD tails keep each row sorted and i < n0 masks pads
+    other_n: torch.Tensor | None = None,  # [R, k-1] int32 valid lengths of the
+    # other lists; the kernel searches only these (the whole bucket when None)
     *,
     semantics: str = "slca",
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -134,36 +170,54 @@ def fused_search_batch(
 
     Returns (keep_ids [R, m0] int32, keep_mask [R, m0] bool) on the inputs'
     device.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel on the current stream, without synchronising.
+    kernel on the current stream, without synchronising, by :func:`route`.
     """
     global LAUNCHES
     if semantics not in _SEMANTICS:
         raise ValueError(f"unknown semantics {semantics!r}")
-    index = _check(ids0, pid0, ndesc0, other_ids, other_ndesc, n0)
+    index = _check(ids0, pid0, ndesc0, other_ids, other_ndesc, n0, other_n)
     if index < 0:
         return fused_search_batch_plain(
             ids0, pid0, ndesc0, other_ids, other_ndesc, n0, semantics
         )
+    out = _launch(index, ids0, pid0, ndesc0, other_ids, other_ndesc, n0, other_n,
+                  semantics, route(ids0.shape[1], other_ids.shape[1] + 1, semantics))
+    LAUNCHES += 1
+    return out
+
+
+def scratch_of(ids0: torch.Tensor, k1: int, semantics: str):
+    """The tiles route's scratch: one buffer of [R, m0] int32 planes, all
+    initialised by the kernel (the CA mask, the CA-child count, each CA's
+    parent position, and for ELCA the k-1 gathered other-list NDesc rows and
+    the k parent sums); returns (the pointers of ca, ndo, cnt, sums and
+    ppos, the buffer)."""
+    elca = semantics == "elca"
+    planes = ids0.new_empty((3 + (2 * k1 + 1 if elca else 0)) * ids0.numel())
+    at, plane = planes.data_ptr(), 4 * ids0.numel()
+    return (at, at + 3 * plane, at + plane, at + (3 + k1 if elca else 3) * plane,
+            at + 2 * plane), planes
+
+
+def _launch(index, ids0, pid0, ndesc0, other_ids, other_ndesc, n0, other_n,
+            semantics, which):
+    """Launch route ``which`` of the kernel on checked CUDA inputs."""
     rows, m0 = ids0.shape
     k1, mo = other_ids.shape[1], other_ids.shape[2]
-    dev = ids0.device
-    elca = semantics == "elca"
     keep_ids = torch.empty_like(ids0)
     keep_mask = torch.empty_like(ids0, dtype=torch.bool)
-    # scratch, one buffer of [R, m0] planes, initialised by the kernel:
-    # CA mask, CA-child count, and for ELCA the k-1 gathered other-list
-    # NDesc rows and the k parent sums
-    planes = 2 + (2 * k1 + 1 if elca else 0)
-    scratch = torch.empty((planes, rows * m0), dtype=torch.int32, device=dev)
-    ca, cnt, ndo = scratch[0], scratch[1], scratch[2:]
-    sums = scratch[2 + k1 :] if elca else scratch[2:]
+    if which == "rows":
+        scratch = (0, 0, 0, 0, 0)
+    else:  # planes, the buffer, is held until the launch is queued
+        scratch, planes = scratch_of(ids0, k1, semantics)
     _LAUNCH(
         index,
-        *(t.data_ptr() for t in (ids0, pid0, ndesc0, other_ids, other_ndesc, n0)),
-        rows, m0, k1, mo, _SEMANTICS[semantics],
-        *(t.data_ptr() for t in (keep_ids, keep_mask, ca, ndo, cnt, sums)),
+        ids0.data_ptr(), pid0.data_ptr(), ndesc0.data_ptr(), other_ids.data_ptr(),
+        other_ndesc.data_ptr(), n0.data_ptr(),
+        0 if other_n is None else other_n.data_ptr(),
+        rows, m0, k1, mo, _SEMANTICS[semantics], ROUTES.index(which),
+        keep_ids.data_ptr(), keep_mask.data_ptr(), *scratch,
     )
-    LAUNCHES += 1
     return keep_ids, keep_mask
 
 

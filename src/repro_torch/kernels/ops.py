@@ -22,11 +22,12 @@ from repro_torch.core.idlist import IDList
 from repro_torch.core.search_vec import register_membership_backend
 
 from .elca_segsum import elca_child_sums
-from .intersect import intersect_membership
+from .intersect import intersect_lists, intersect_membership
 from .searchsorted import searchsorted
 
 __all__ = [
     "elca_child_sums",
+    "intersect_lists",
     "intersect_membership",
     "membership_chained",
     "run_query_chained",
@@ -73,12 +74,14 @@ def run_query_chained(
 ) -> np.ndarray:
     """SLCA/ELCA/CA of one set of posting lists through the chained kernels.
 
-    The reference's order of operations: lists sorted by length, one
-    membership call per other list into the shortest list L0, the CA mask,
-    parents from ``pidpos``, then the SLCA shift-compare, the ELCA child
-    sums, or the CAs.  The lists reach ``device`` in one copy, the tensors
-    stay there between the kernels, and the result comes back in one copy;
-    the CA count is the one other read (it sizes the compacted CA arrays).
+    The reference's order of operations: lists sorted by length, the
+    shortest list L0 probed against every other list (the CA mask and each
+    list's NDesc at L0's entries, one ``intersect_lists`` launch for all the
+    lists), parents from ``pidpos``, then the SLCA shift-compare, the ELCA
+    child sums, or the CAs.  The lists and their table reach ``device`` in
+    one copy, the tensors stay there between the kernels, and the result
+    comes back in one copy; the CA count is the one other read (it sizes the
+    compacted CA arrays).
     Returns the sorted result ids (int64).
     """
     if semantics not in ("slca", "elca", "ca"):
@@ -88,27 +91,27 @@ def run_query_chained(
     order = np.argsort([len(l) for l in lists], kind="stable")
     lists = [lists[i] for i in order]
     l0 = lists[0]
-    n = len(l0)
+    n, k = len(l0), len(lists)
     dev = torch.device(device)
 
     # one host buffer (pinned on CUDA): L0 ids, parent ids and NDesc, then
-    # each other list's ids and NDesc
+    # each other list's ids and NDesc, then the table intersect_lists reads:
+    # (ids offset, NDesc offset, length) of L0 and of each other list
     pid0 = np.where(l0.pidpos >= 0, l0.ids[np.clip(l0.pidpos, 0, n - 1)], -1)
     parts = [l0.ids, pid0, l0.ndesc]
     for l in lists[1:]:
         parts += [l.ids, l.ndesc]
-    sizes = [len(p) for p in parts]
-    host = torch.empty(sum(sizes), dtype=torch.int32, pin_memory=dev.type == "cuda")
-    host.numpy()[:] = np.concatenate(parts)
-    views = torch.split(host.to(dev, non_blocking=True), sizes)
-    ids0, pid0_t = views[0], views[1]
+    starts = np.cumsum([0] + [len(p) for p in parts])
+    table = [(0, starts[2], n)] + [
+        (starts[2 * j + 1], starts[2 * j + 2], len(l)) for j, l in enumerate(lists[1:], 1)
+    ]
+    total = int(starts[-1])
+    host = torch.empty(total + 3 * k, dtype=torch.int32, pin_memory=dev.type == "cuda")
+    host.numpy()[:] = np.concatenate(parts + [np.ravel(table)])
+    buf = host.to(dev, non_blocking=True)
+    ids0, pid0_t = buf[:n], buf[n : 2 * n]
 
-    ca_mask = torch.ones(n, dtype=torch.bool, device=dev)
-    nd = [views[2]]
-    for ids, ndesc in zip(views[3::2], views[4::2]):
-        found, pos = intersect_membership(ids, ids0)
-        ca_mask &= found
-        nd.append(ndesc.index_select(0, pos))  # pos is 0, a valid slot, on a miss
+    ca_mask, nd = intersect_lists(buf, buf[total:].view(k, 3), n)
 
     idx = torch.nonzero(ca_mask).squeeze(1)
     if idx.numel() == 0:
@@ -120,7 +123,7 @@ def run_query_chained(
     if semantics == "slca":
         keep = torch.cat([par[1:], par.new_full((1,), -1)]) != ca
     else:
-        nd_ca = torch.stack(nd).index_select(1, idx)  # [k, #CA]
+        nd_ca = nd.index_select(1, idx)  # [k, #CA]
         keep = (nd_ca - elca_child_sums(ca, par, nd_ca) >= 1).all(dim=0)
     out = torch.where(keep, ca, -1).cpu().numpy()  # node ids are >= 0
     return out[out >= 0].astype(np.int64)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 from test_fused import keyword_list, preorder_tree, random_items
+from test_torch_chained_cuda import lists_case, pack_lists
 
 from repro.core import NodeSpec, build_tree
 from repro.core import brute as ref_brute
@@ -87,6 +88,70 @@ def test_intersect_membership_misses_write_zero():
     assert pos.tolist() == [0, 0, 0, 2, 0]
     found, pos = ops.intersect_membership(t(a[:0]), t(q))  # empty list
     assert not found.any() and not pos.any()
+
+
+INTERSECT_LISTS_CASES = {  # name: (L0 length, other lengths, mode)
+    "random": (300, (900, 2000, 5000), "mixed"),
+    "l0-length-1": (1, (40, 7, 300), "mixed"),
+    "no-hits": (200, (500, 300, 100), "none"),
+    "all-hits": (150, (150, 600, 2000), "all"),
+    "lists-of-length-1": (1, (1, 1, 1), "all"),
+}
+
+
+@pytest.mark.parametrize("case", INTERSECT_LISTS_CASES)
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_intersect_lists_matches_reference(k, case):
+    """ca and nd of one chained query == the reference kernel (interpret
+    mode) per other list, with its NDesc gathers as run_query_pallas makes
+    them, on lists at any 16-byte phase of the buffer."""
+    n0, others, mode = INTERSECT_LISTS_CASES[case]
+    rng = np.random.default_rng(2000 + 10 * k + len(case))
+    lists = lists_case(rng, n0, others[: k - 1], mode)
+    buf, table, n = pack_lists(lists, gaps=(3, 0, 1, 2))
+    ca, nd = intersect.intersect_lists(buf, table, n)
+    assert ca.dtype == torch.bool and nd.dtype == torch.int32
+    assert tuple(ca.shape) == (n,) and tuple(nd.shape) == (k, n)
+    (l0, nd0), *rest = lists
+    want_ca = np.ones(n, bool)
+    want_nd = [nd0]
+    for ids, ndesc in rest:
+        found, pos = ref_ops.intersect_membership(ids, l0, bq=128, ba=128)
+        want_ca &= found
+        want_nd.append(ndesc[np.minimum(pos, len(ids) - 1)])
+    np.testing.assert_array_equal(ca.numpy(), want_ca)
+    np.testing.assert_array_equal(nd.numpy(), np.stack(want_nd))
+    if mode == "none":
+        assert not ca.any()
+    if mode == "all":
+        assert ca.all()
+
+
+def test_intersect_lists_refuses_a_bad_table():
+    buf = torch.arange(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"\[k, 3\] table"):
+        intersect.intersect_lists(buf, buf[:6].view(3, 2), 2)
+    with pytest.raises(ValueError, match="int32"):
+        intersect.intersect_lists(buf, buf[:6].view(2, 3).long(), 2)
+
+
+def test_run_query_chained_one_intersect_call_per_query(monkeypatch):
+    """run_query_chained asks intersect_lists once per query, with every
+    list in one buffer and the table as a view of it."""
+    seen = []
+
+    def spy(buf, table, n):
+        seen.append((buf, table, n))
+        return intersect.intersect_lists_plain(buf, table, n)
+
+    monkeypatch.setattr(ops, "intersect_lists", spy)
+    rng = np.random.default_rng(8)
+    lists = [IDList(l.ids, l.pidpos, l.ndesc) for l in random_query_lists(rng, 3)]
+    want = ref_ops.run_query_pallas(lists, semantics="elca")
+    np.testing.assert_array_equal(ops.run_query_chained(lists, "elca", device="cpu"), want)
+    (buf, table, n), = seen
+    assert table.data_ptr() == buf.data_ptr() + 4 * (buf.numel() - 9)
+    assert table[:, 2].tolist() == sorted(len(l) for l in lists) and n == table[0, 2]
 
 
 @pytest.mark.parametrize("na,nq", [(1000, 100), (37, 513), (2048, 2048), (1, 7)])

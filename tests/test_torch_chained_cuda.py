@@ -32,6 +32,96 @@ def on(dev, x):
     return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(dev)
 
 
+def lists_case(rng, n0, others, mode="mixed"):
+    """[(ids, ndesc)] of one chained query, L0 first: L0 of n0 ids in every
+    other list (``"all"``), in none (``"none"``) or partly (``"mixed"``)."""
+    hi = 4 * max(n0, *others) + 100
+    if mode == "none":  # L0 odd, the others even
+        l0 = np.unique(rng.integers(0, hi // 2, size=n0)) * 2 + 1
+        rest = [np.unique(rng.integers(0, hi // 2, size=m)) * 2 for m in others]
+    else:
+        l0 = np.unique(rng.integers(0, hi, size=n0))
+        keep = l0 if mode == "all" else l0[rng.random(l0.size) < 0.7]
+        rest = [np.union1d(keep, rng.integers(0, hi, size=max(m - keep.size, 0)))
+                for m in others]
+    return [(ids.astype(np.int32), rng.integers(1, 100, size=ids.size).astype(np.int32))
+            for ids in [l0, *rest]]
+
+
+def pack_lists(lists, gaps=None, device="cpu"):
+    """(buf, table, n) on ``device`` as ``run_query_chained`` packs them:
+    each list's ids and NDesc, ``gaps[i]`` ints before part i (none by
+    default), then the [k, 3] table (ids offset, NDesc offset, length) as a
+    view of the buffer."""
+    parts, table, off = [], [], 0
+    for i, (ids, nd) in enumerate(lists):
+        row = []
+        for j, x in enumerate((ids, nd)):
+            gap = 0 if gaps is None else gaps[(2 * i + j) % len(gaps)]
+            parts += [np.full(gap, -7, np.int32), x]
+            row.append(off + gap)
+            off += gap + x.size
+        table.append((*row, ids.size))
+    buf = torch.from_numpy(np.concatenate(parts + [np.ravel(table).astype(np.int32)]))
+    buf = buf.to(device)
+    return buf, buf[off:].view(len(lists), 3), int(lists[0][0].size)
+
+
+LISTS_CASES = [  # (n0, other lengths, mode)
+    (1, (1,), "all"), (1, (1, 1, 1), "none"), (5, (1, 1), "mixed"),
+    (300, (300, 900), "all"), (500, (700,), "none"),
+    (2000, (3000, 8000, 20_000), "mixed"),  # every window staged whole
+    (100, (100_000,), "mixed"),  # windows past the 4,093-id buffer: sampled
+    (100, (20_000, 100_000, 3000), "mixed"),  # both, in one call
+    (20_001, (60_001,), "mixed"),
+]
+
+
+@pytest.mark.parametrize("gaps", [None, (1, 2, 3, 0, 3)], ids=["packed", "gaps"])
+@pytest.mark.parametrize("n0,others,mode", LISTS_CASES)
+def test_intersect_lists_kernel_matches_plain(cuda, n0, others, mode, gaps):
+    rng = np.random.default_rng(n0 * 7 + sum(others))
+    buf, table, n = pack_lists(lists_case(rng, n0, others, mode), gaps, cuda)
+    launches = intersect.LAUNCHES
+    ca, nd = intersect.intersect_lists(buf, table, n)
+    again = intersect.intersect_lists(buf, table, n)
+    torch.cuda.synchronize()
+    assert intersect.LAUNCHES == launches + 2
+    want_ca, want_nd = intersect.intersect_lists_plain(buf, table, n)
+    assert ca.dtype == torch.bool and nd.dtype == torch.int32
+    assert torch.equal(ca, want_ca) and torch.equal(nd, want_nd)
+    assert torch.equal(again[0], ca) and torch.equal(again[1], nd)
+
+
+@pytest.mark.parametrize("width", [4092, 4093, 4094, 4095, 4096, 4097, 8192, 8193])
+@pytest.mark.parametrize("gap", [0, 1, 2, 3])
+def test_intersect_lists_windows_at_the_buffer_edge(cuda, width, gap):
+    """A tile whose window holds exactly ``width`` ids: whole up to 4,093,
+    sampled from 4,094 on, at each 16-byte phase of the list."""
+    rng = np.random.default_rng(width + gap)
+    ids = np.unique(rng.integers(0, 10**6, size=3 * width))[: 2 * width].astype(np.int32)
+    l0 = np.array([ids[5], ids[5] + 1, ids[5 + width - 1]], np.int32)  # one miss
+    lists = [(l0, np.arange(1, 4, dtype=np.int32)),
+             (ids, rng.integers(1, 100, size=ids.size).astype(np.int32))]
+    buf, table, n = pack_lists(lists, (0, 0, gap, 0), cuda)
+    ca, nd = intersect.intersect_lists(buf, table, n)
+    want_ca, want_nd = intersect.intersect_lists_plain(buf, table, n)
+    assert torch.equal(ca, want_ca) and torch.equal(nd, want_nd)
+    assert ca.tolist() == [True, ids[6] == ids[5] + 1, True]
+
+
+def test_intersect_lists_on_a_side_stream(cuda):
+    rng = np.random.default_rng(16)
+    buf, table, n = pack_lists(lists_case(rng, 3000, (9000, 150_000)), (3, 1), cuda)
+    want = intersect.intersect_lists_plain(buf, table, n)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = intersect.intersect_lists(buf, table, n)
+    side.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("na,nq", [(1, 1), (513, 511), (1000, 100), (100, 1000),
                                    (5000, 5000), (0, 7), (60_001, 20_001)])
 def test_intersect_kernel_matches_plain(cuda, na, nq):
@@ -120,6 +210,9 @@ def _call(name, dev):
         return ss.searchsorted(one[None], one[None])
     if name == "intersect":
         return intersect.intersect_membership(one, one)
+    if name == "intersect_lists":
+        table = torch.tensor([[0, 0, 4], [0, 0, 4]], dtype=torch.int32, device=dev)
+        return intersect.intersect_lists(one, table, 4)
     if name == "elca_segsum":
         return elca_segsum.elca_child_sums(one, one, one[None])
     ids = one[None]
@@ -129,14 +222,15 @@ def _call(name, dev):
     )
 
 
-@pytest.mark.parametrize("name", ["searchsorted", "intersect", "elca_segsum", "fused"])
+@pytest.mark.parametrize("name", ["searchsorted", "intersect", "elca_segsum", "fused",
+                                  "intersect_lists"])
 def test_cuda_tensor_without_a_kernel_raises(cuda, name, monkeypatch, tmp_path):
     """A kernel that cannot be built raises; it never falls back to plain."""
     monkeypatch.setattr(_build, "_LIBS", {})
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    module = {"searchsorted": ss, "intersect": intersect,
+    module = {"searchsorted": ss, "intersect": intersect, "intersect_lists": intersect,
               "elca_segsum": elca_segsum, "fused": fused_search}[name]
     launches = module.LAUNCHES
     with pytest.raises(RuntimeError, match="nvcc not found"):
@@ -171,3 +265,13 @@ def test_searchsorted_on_a_side_stream(cuda):
         got = ss.searchsorted(a, q)
     side.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_run_query_chained_launches_intersect_once(cuda, k):
+    rng = np.random.default_rng(40 + k)
+    lists = _random_item(rng, k)
+    launches = intersect.LAUNCHES
+    got = ops.run_query_chained(lists, "elca", device=cuda)
+    assert intersect.LAUNCHES == launches + 1
+    np.testing.assert_array_equal(got, ops.run_query_chained(lists, "elca", device="cpu"))

@@ -162,3 +162,29 @@ def test_kernel_builds_under_the_checkout():
     root = fused_search._SOURCE.parents[3]
     assert (root / "src" / "repro_torch" / "csrc" / "fused_search.cu").exists()
     assert fused_search.BUILD_DIR == root / "build" / "repro_torch_kernels"
+
+
+@pytest.mark.parametrize("m0,k,semantics,want", [
+    (16, 2, "slca", "rows"),
+    (2048, 4, "elca", "rows"),
+    (2048, 1, "ca", "rows"),
+    (4096, 2, "slca", "tiles"),  # past the rows route's 2,048 slots
+    (65_536, 4, "elca", "tiles"),
+    (2048, 14, "elca", "tiles"),  # 14 lists' sums and NDesc pass 227 KB
+])
+def test_route_is_decided_by_shape(m0, k, semantics, want):
+    assert fused_search.route(m0, k, semantics) == want
+    # the rows route's state fits for every row it takes, and for some longer
+    # rows it is not sent (one block would walk them too slowly)
+    assert fused_search.rows_fit(m0, k, semantics) == (want == "rows" or m0 == 4096)
+
+
+def test_plain_path_ignores_other_n():
+    """other_n is optional: the CPU path gives the same with or without it."""
+    rng = np.random.default_rng(12)
+    items = random_items(rng, 3, 3)
+    batch, _, _ = RefPlanCache(backend="fused").pack(items, [0, 1, 2], "elca", "fused")
+    t = to_torch(batch)
+    with_n = fused_search_batch(**t, semantics="elca")
+    without = fused_search_batch(**{**t, "other_n": None}, semantics="elca")
+    assert torch.equal(with_n[0], without[0]) and torch.equal(with_n[1], without[1])
