@@ -7,7 +7,8 @@ Phases (any failure exits non-zero, and no result line is printed):
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the five kernels from ``src/repro_torch/csrc`` with nvcc, one
-     process per source, all at once, with the time of each;
+     process per source, all at once, with the time of each, and import
+     each as a Python extension module;
   3. the fused search path at a realistic size: the synthetic discogs corpus
      of 20,000 releases (about 1.03 M nodes), ``KeywordSearchEngine`` on
      ``cuda``, the paper's nine queries x slca/elca x the tree and DAG
@@ -35,16 +36,20 @@ Phases (any failure exits non-zero, and no result line is printed):
      each device op, and passes with the rows route's limit at 0, 2,048,
      4,096 and 8,192 slots;
   7. each chained kernel against its plain version the same way, on seeded
-     random shapes and on every call the counted chained path made, with
+     random shapes (searchsorted: windows staged whole and sampled at every
+     16-byte phase, queries in random order, the service's widest call;
+     elca_segsum: a star, a few hot parents, no parents, K = 1..4 with
+     INT32_MAX tails) and on every call the counted chained path made, with
      the time of ``torch.searchsorted`` on the same inputs beside the
      searchsorted and intersect kernels (for intersect one call per (list,
-     L0) pair; no single PyTorch call computes the ELCA child sums), and the
-     library pass's device time; then a host-clock breakdown of one
-     main-path ``searchsorted`` call: the checks, the allocation, the entry
-     lookup, the device guard, the stream lookup, the pointers and the
-     ctypes call, each timed on its own, beside the whole call and
-     ``torch.searchsorted``; and the same of one main-path
-     ``fused_search`` call of each route;
+     L0) pair; no single PyTorch call computes the ELCA child sums), the
+     library pass's device time, and each kernel's device time per device
+     op; then a host-clock breakdown of one main-path call of each chained
+     wrapper and of ``fused_search`` on each route: the wrapper's checks,
+     allocation and pointers, the entry lookup, the device guard, the stream
+     lookup, and the entry call beside a ``ctypes`` call of the same C
+     function in the same library (timed in turns), beside the whole call
+     (and ``torch.searchsorted``, in turns);
   8. first, one decode-attention call at the decode_32k cell's shape (B
      128, T 32,768) against its plain version, timed by CUDA events, by a
      profiled pass of 10 and beside ``scaled_dot_product_attention``; then
@@ -59,8 +64,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      and on every call the two runs made (and two kernel calls bit for bit
      equal), with one pass of those calls timed beside
      ``scaled_dot_product_attention`` (CUDA events and profiler device
-     time); last, one profiled serving run of 8 decode steps (device busy
-     and idle share);
+     time) and the host breakdown of one call; last, one profiled serving
+     run of 8 decode steps (device busy and idle share);
   9. a ``{"kernels": [...]}`` line with all five kernels, the nvidia-smi
      line, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -128,7 +133,7 @@ KERNELS = {
     # no single call: the plain version is searchsorted + index_add_
     "elca_segsum": Kernel(
         "elca_child_sums", "src/repro/kernels/elca_segsum.py:24",
-        ("segsum_kernel", "Memset"), None,
+        ("segsum_dense_kernel", "segsum_tiles_kernel", "Memset"), None,
     ),
     # the library call (scaled_dot_product_attention) is sdpa_call below
     # the split kernel and, when T is split, the combine kernel
@@ -338,8 +343,11 @@ def expected_launches(name: str, calls) -> dict[str, int]:
         elif name == "elca_segsum":
             ca, par, nd = args
             if ca.numel() and nd.shape[0]:
-                n["Memset"] += 1
-                n["segsum_kernel"] += par.numel() > 0
+                if module(name).route(ca.numel(), par.numel(), nd.shape[0]) == "dense":
+                    n["segsum_dense_kernel"] += 1
+                else:  # a memset, then the kernel when there is a child
+                    n["Memset"] += 1
+                    n["segsum_tiles_kernel"] += par.numel() > 0
         else:
             q, k = args[0], args[1]
             b, h = q.shape[:2]
@@ -547,50 +555,33 @@ def batch_shapes(rounds) -> list[dict]:
 
 
 def fused_breakdown(batch: dict, semantics: str) -> dict:
-    """Host µs of each part of one ``fused_search_batch`` call on this batch,
-    each part timed on its own as the wrapper does it, beside the whole
-    call."""
+    """``host_breakdown`` of one ``fused_search_batch`` call on this batch."""
     import torch
-
-    from repro_torch.kernels import _build
 
     fs = module("fused_search")
     rows, m0 = batch["ids0"].shape
     k1, mo = batch["other_ids"].shape[1], batch["other_ids"].shape[2]
     index = batch["ids0"].device.index
     which = fs.route(m0, k1 + 1, semantics)
-    fs.fused_search_batch(**batch, semantics=semantics)  # binds the entry
     keep_ids, keep_mask = fs._launch(index, *batch.values(), semantics, which)
-    entry = fs._LAUNCH
-    fn, stream = entry._fn, _build.current_stream_ptr(index)
     scratch = ((0,) * 5, None) if which == "rows" else fs.scratch_of(batch["ids0"], k1, semantics)
     ptr_scratch = scratch[0]  # scratch[1], the buffer, lives as long as this call
-    ptrs = (*(t.data_ptr() for t in batch.values()), rows, m0, k1, mo,
+    args = (*(0 if t is None else t.data_ptr() for t in batch.values()), rows, m0, k1, mo,
             fs._SEMANTICS[semantics], fs.ROUTES.index(which),
             keep_ids.data_ptr(), keep_mask.data_ptr(), *ptr_scratch)
     ids0 = batch["ids0"]
-    parts = {
-        "checks": lambda: fs._check(*batch.values()),
-        "route": lambda: fs.route(m0, k1 + 1, semantics),
-        "allocation": lambda: (torch.empty_like(ids0),
-                               torch.empty_like(ids0, dtype=torch.bool),
-                               None if which == "rows" else fs.scratch_of(ids0, k1, semantics)),
-        "device guard": lambda: index == _build.current_device_index(),
-        "stream": lambda: _build.current_stream_ptr(index),
-        "pointers": lambda: [t.data_ptr() for t in batch.values()],
-        "ctypes call": lambda: fn(*ptrs, stream),
-    }
-    rec = {"route": which, "shape": [int(rows), int(k1 + 1), int(m0), int(mo)],
-           "parts_us": {name: host_us(part) for name, part in parts.items()}}
-    rec["sum_us"] = sum(rec["parts_us"].values())
-    rec["whole_call_us"] = host_us(lambda: fs.fused_search_batch(**batch, semantics=semantics))
-    print(
-        f"fused_search host breakdown at R={rows} k={k1 + 1} m0={m0} mo={mo} "
-        f"{semantics} ({which} route; median us a call, {BREAKDOWN_BATCHES} batches "
-        f"of {BREAKDOWN_REPS}): "
-        + ", ".join(f"{n} {us:.2f}" for n, us in rec["parts_us"].items())
-        + f"; sum {rec['sum_us']:.2f}; whole call {rec['whole_call_us']:.2f}"
-    )
+    rec = {"route": which, "shape": [int(rows), int(k1 + 1), int(m0), int(mo)]}
+    rec.update(host_breakdown(
+        f"fused_search at R={rows} k={k1 + 1} m0={m0} mo={mo} {semantics} ({which} route)",
+        fs._LAUNCH, index, args,
+        {"checks": lambda: fs._check(*batch.values()),
+         "route": lambda: fs.route(m0, k1 + 1, semantics),
+         "allocation": lambda: (torch.empty_like(ids0),
+                                torch.empty_like(ids0, dtype=torch.bool),
+                                None if which == "rows" else fs.scratch_of(ids0, k1, semantics)),
+         "pointers": lambda: [t.data_ptr() for t in batch.values()]},
+        {"whole_call_us": lambda: fs.fused_search_batch(**batch, semantics=semantics)}))
+    del scratch
     return rec
 
 
@@ -769,6 +760,26 @@ def chained_random_cases():
             a[r, : row.size] = row[:m]
         q = rng.integers(-5, 10 * m + 5, size=(rows, nq))  # unsorted
         cases.append(("searchsorted", f"B={rows} M={m} Q={nq}", (on(a), on(q))))
+    # a tile of 1,024 queries in random order whose window holds 4,093 ids
+    # (staged whole) or 4,094 (sampled), at every 16-byte phase of the rows
+    for width in (4093, 4094):
+        for gap in range(4):
+            m = 2 * width + 7
+            a = np.stack([sorted_unique(3 * m, 40 * m)[:m] for _ in range(3)])
+            lo, hi = a[:, 5:6], a[:, 5 + width : 6 + width]
+            q = lo + (rng.random((3, 1024)) * (hi - lo + 1)).astype(np.int64)
+            q[:, :2] = np.concatenate([lo, hi], axis=1)
+            q = rng.permuted(q, axis=1)
+            cases.append(("searchsorted", f"B=3 M={m} Q=1024 window {width} phase {gap}",
+                          (at_phase(a, gap), at_phase(q, (gap + 1) % 4))))
+    # the service's widest call: ascending L0 ids with an INT_PAD tail
+    a = np.full((12, 131_072), np.iinfo(np.int32).max, np.int32)
+    for r in range(12):
+        row = sorted_unique(60_000, 10**6)
+        a[r, : row.size] = row
+    q = np.sort(rng.integers(0, 10**6, size=(12, 32_768)), axis=1)
+    q[:, 28_000:] = np.iinfo(np.int32).max
+    cases.append(("searchsorted", "B=12 M=131072 Q=32768 ascending", (on(a), on(q))))
     for m, k, pad in ((1, 2, 0), (100, 2, 0), (513, 3, 5), (1024, 4, 0),
                       (20_000, 3, 0), (40_000, 4, 17)):
         ca = sorted_unique(m, 10**6)
@@ -780,7 +791,48 @@ def chained_random_cases():
         nd = np.concatenate([nd, np.zeros((k, pad), np.int64)], axis=1)
         cases.append(("elca_segsum", f"MI={ca.size} K={k} pad={pad}",
                       (on(ca), on(par), on(nd))))
+    for kind, mi, mj, k, pad in (
+        ("star", 60_001, 60_001, 2, 0), ("star", 3, 70_000, 1, 3),
+        ("hot", 60_001, 60_001, 3, 0), ("hot", 200, 511, 2, 1),
+        ("none", 20_000, 20_000, 4, 5), ("random", 100, 70_000, 1, 9),
+        ("random", 60_001, 10, 2, 7), ("random", 4_094, 4_094, 4, 17),
+    ):
+        cases.append(("elca_segsum", f"{kind} MI={mi + pad} MJ={mj + pad} K={k} pad={pad}",
+                      tuple(on(x) for x in segsum_case(rng, kind, mi, mj, k, pad))))
     return cases
+
+
+def at_phase(x, gap: int):
+    """``x`` on the card as a contiguous view starting ``gap`` int32s into
+    its buffer (another 16-byte phase)."""
+    import torch
+
+    flat = np.concatenate([np.full(gap, -7, np.int32), np.ravel(x).astype(np.int32)])
+    return torch.from_numpy(flat).to(DEVICE)[gap:].view(x.shape)
+
+
+def segsum_case(rng, kind: str, mi: int, mj: int, k: int, pad: int):
+    """(ca, par, nd) of one child-sum call: ca of mi ascending unique ids and
+    ``pad`` INT32_MAX; mj children (and ``pad`` with no parent) whose parents
+    are one id of ca (``"star"``), a few hot ids among scattered cold ones
+    (``"hot"``), none (``"none"``), or any id of ca, some not in it, or none
+    (``"random"``); parents in any order, not only before their children."""
+    ca = np.unique(rng.integers(0, 50 * mi + 100, size=mi))
+    if kind == "star":
+        par = np.full(mj, ca[ca.size // 2])
+    elif kind == "hot":
+        hot = rng.choice(ca, size=min(3, ca.size), replace=False)
+        par = np.where(rng.random(mj) < 0.9, rng.choice(hot, size=mj), rng.choice(ca, size=mj))
+    elif kind == "none":
+        par = np.full(mj, -1)
+    else:
+        par = np.where(rng.random(mj) < 0.8, rng.choice(ca, size=mj),
+                       rng.integers(-3, 50 * mi + 100, size=mj))
+    par[rng.random(mj) < 0.05] = -1
+    nd = rng.integers(-50, 100, size=(k, mj))
+    return (np.concatenate([ca, np.full(pad, np.iinfo(np.int32).max)]),
+            np.concatenate([par, np.full(pad, -1)]),
+            np.concatenate([nd, rng.integers(1, 9, size=(k, pad))], axis=1))
 
 
 BREAKDOWN_REPS = 200  # calls per timed batch of the host breakdown
@@ -805,45 +857,146 @@ def host_us(fn) -> float:
     return float(np.median(per_call))
 
 
-def launch_breakdown(a, q) -> dict:
-    """Host µs of each part of one ``searchsorted`` call on these inputs,
-    each part timed on its own as the wrapper does it, beside the whole
-    call and one ``torch.searchsorted`` call."""
+def host_us_in_turns(fns: dict, rounds: int = 4) -> dict:
+    """Median host µs of one call of each function of ``fns``, timed in turns
+    (``host_us`` of each, the order reversed every round): the host's speed
+    drifts within a run."""
+    names = list(fns)
+    times = {name: [] for name in names}
+    for r in range(rounds):
+        for name in names if r % 2 == 0 else names[::-1]:
+            times[name].append(host_us(fns[name]))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+# The C entry points' parameters before the stream ("p" pointer, "i" int, "f"
+# float), only to time a ctypes.CDLL call of the same function beside the
+# port's binding (binding_us); the port itself never uses ctypes.
+CTYPES_PARAMS = {
+    "searchsorted_launch": "ppiiip",
+    "elca_segsum_launch": "pippiip",
+    "intersect_lists_launch": "ppiipp",
+    "fused_search_launch": "ppppppp" "iiiiii" "ppppppp",
+    "decode_attention_f32": "pppp" "iiiii" "f" "ii" "pp",
+    "decode_attention_bf16": "pppp" "iiiii" "f" "ii" "pp",
+}
+
+
+def binding_us(entry, index: int, args) -> dict:
+    """Host µs of one call of ``entry``'s C function on ``args`` (ints and
+    floats, the stream excluded), through the port's binding (the module
+    function ``Entry`` calls) and through ``ctypes.CDLL`` of the same
+    function in the same library, timed in turns.  Each call launches the
+    kernel on the current stream."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+    fn = getattr(_build.load(entry.source), entry.name)
+    cfn = getattr(ctypes.CDLL(str(_build.build(entry.source))), entry.name)
+    cfn.argtypes = [types[c] for c in CTYPES_PARAMS[entry.name]] + [ctypes.c_void_p]
+    cfn.restype = ctypes.c_int
+    stream = _build.current_stream_ptr(index)
+    for call in (fn, cfn):
+        if call(*args, stream):
+            raise AssertionError(f"{entry.name} failed through {call!r}")
+    return host_us_in_turns({"entry call": lambda: fn(*args, stream),
+                             "ctypes call": lambda: cfn(*args, stream)})
+
+
+def host_breakdown(label: str, entry, index: int, args, parts: dict,
+                   whole: dict) -> dict:
+    """Host µs of each part of one kernel wrapper call, each timed on its own
+    as the wrapper does it: ``parts``, the wrapper's own work before the
+    launch; then the launch path's entry lookup, device guard and stream,
+    and the entry call (``args``: the C function's arguments) beside a
+    ctypes call of the same function (``binding_us``).  ``sum_us`` adds the
+    parts of the wrapper's path (not the ctypes call); ``whole``'s functions
+    (the whole call, and a library call where there is one) are timed in
+    turns."""
+    from repro_torch.kernels import _build
+
+    entry(index, *args)  # binds it
+    parts = {
+        **parts,
+        "lookup": lambda: entry._fn if entry._libs is _build._LIBS else None,
+        "device guard": lambda: index == _build.current_device_index(),
+        "stream": lambda: _build.current_stream_ptr(index),
+    }
+    us = {name: host_us(part) for name, part in parts.items()}
+    us.update(binding_us(entry, index, args))
+    rec = {"parts_us": us, "sum_us": sum(v for n, v in us.items() if n != "ctypes call")}
+    rec.update(host_us_in_turns(whole))
+    print(
+        f"{label} host breakdown (median us a call, {BREAKDOWN_BATCHES} batches of "
+        f"{BREAKDOWN_REPS}): " + ", ".join(f"{n} {v:.2f}" for n, v in us.items())
+        + f"; sum (without the ctypes call) {rec['sum_us']:.2f}; "
+        + ", ".join(f"{n} {rec[n]:.2f}" for n in whole)
+    )
+    return rec
+
+
+def searchsorted_breakdown(a, q) -> dict:
+    """``host_breakdown`` of one ``searchsorted`` call on these inputs, beside
+    ``torch.searchsorted``."""
     import torch
 
     from repro_torch.kernels import _build
 
     ss = module("searchsorted")
-    dev = a.device
     rows, m = a.shape
-    nq = q.shape[1]
     out = torch.empty_like(q)
-    ptrs = (a.data_ptr(), q.data_ptr(), rows, m, nq, out.data_ptr())
-    entry = ss._LAUNCH
-    entry(dev.index, *ptrs)  # binds it
-    fn, stream = entry._fn, _build.current_stream_ptr(dev.index)
+    args = (a.data_ptr(), q.data_ptr(), rows, m, q.shape[1], out.data_ptr())
+    rec = {"shapes": [list(a.shape), list(q.shape)]}
+    rec.update(host_breakdown(
+        f"searchsorted at {rec['shapes']}", ss._LAUNCH, a.device.index, args,
+        {"checks": lambda: _build.int32_device(a, q),
+         "allocation": lambda: torch.empty_like(q),
+         "pointers": lambda: (a.data_ptr(), q.data_ptr(), out.data_ptr())},
+        {"whole_call_us": lambda: ss.searchsorted(a, q),
+         "torch_searchsorted_us": lambda: torch.searchsorted(a, q)}))
+    return rec
 
-    parts = {
-        "checks": lambda: _build.int32_device(a, q),
-        "allocation": lambda: torch.empty_like(q),
-        "lookup": lambda: entry._fn if entry._libs is _build._LIBS else None,
-        "device guard": lambda: dev.index == _build.current_device_index(),
-        "stream": lambda: _build.current_stream_ptr(dev.index),
-        "pointers": lambda: (a.data_ptr(), q.data_ptr(), out.data_ptr()),
-        "ctypes call": lambda: fn(*ptrs, stream),
-    }
-    rec = {"shapes": [list(a.shape), list(q.shape)],
-           "parts_us": {name: host_us(part) for name, part in parts.items()}}
-    rec["sum_us"] = sum(rec["parts_us"].values())
-    rec["whole_call_us"] = host_us(lambda: ss.searchsorted(a, q))
-    rec["torch_searchsorted_us"] = host_us(lambda: torch.searchsorted(a, q))
-    print(
-        f"searchsorted host breakdown at {rec['shapes']} (median us a call, "
-        f"{BREAKDOWN_BATCHES} batches of {BREAKDOWN_REPS}): "
-        + ", ".join(f"{n} {us:.2f}" for n, us in rec["parts_us"].items())
-        + f"; sum {rec['sum_us']:.2f}; whole call {rec['whole_call_us']:.2f}; "
-        f"torch.searchsorted {rec['torch_searchsorted_us']:.2f}"
-    )
+
+def segsum_breakdown(ca, par, nd) -> dict:
+    """``host_breakdown`` of one ``elca_child_sums`` call on these inputs."""
+    from repro_torch.kernels import _build
+
+    es = module("elca_segsum")
+    k, mj = nd.shape
+    mi = ca.numel()
+    out = nd.new_empty((k, mi))
+    args = (ca.data_ptr(), mi, par.data_ptr(), nd.data_ptr(), mj, k, out.data_ptr())
+    rec = {"shapes": shapes_of("elca_segsum", (ca, par, nd))}
+    rec.update(host_breakdown(
+        f"elca_segsum at {rec['shapes']}", es._LAUNCH, ca.device.index, args,
+        {"checks": lambda: _build.int32_device(ca, par, nd),
+         "allocation": lambda: nd.new_empty((k, mi)),
+         "pointers": lambda: (ca.data_ptr(), par.data_ptr(), nd.data_ptr(), out.data_ptr())},
+        {"whole_call_us": lambda: es.elca_child_sums(ca, par, nd)}))
+    return rec
+
+
+def intersect_breakdown(buf, table, n) -> dict:
+    """``host_breakdown`` of one ``intersect_lists`` call on these inputs."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    it = module("intersect")
+    k = table.shape[0]
+    ca = buf.new_empty(n, dtype=torch.bool)
+    nd = buf.new_empty((k, n))
+    args = (buf.data_ptr(), table.data_ptr(), k, n, ca.data_ptr(), nd.data_ptr())
+    rec = {"shapes": shapes_of("intersect", (buf, table, n))}
+    rec.update(host_breakdown(
+        f"intersect_lists at {rec['shapes']}", it._LISTS, buf.device.index, args,
+        {"checks": lambda: _build.int32_device(buf, table),
+         "allocation": lambda: (buf.new_empty(n, dtype=torch.bool), buf.new_empty((k, n))),
+         "pointers": lambda: (buf.data_ptr(), table.data_ptr(), ca.data_ptr(),
+                              nd.data_ptr())},
+        {"whole_call_us": lambda: it.intersect_lists(buf, table, n)}))
     return rec
 
 
@@ -1251,8 +1404,9 @@ def search_phase(card: str) -> list[dict]:
             passes["ms"], passes["library_ms"] = pass_ms(kernel_calls), None
         n = library_calls(name, [a for _l, a in recorded])
         want = expected_launches(name, [a for _l, a in recorded])
+        ops_ms = {}
         dev_ms, dev_events = device_pass_ms(lambda: [kernel(*a) for _l, a in recorded],
-                                            want, name)
+                                            want, name, ops_ms=ops_ms)
         lib_dev_ms, lib_events = (
             device_pass_ms(lambda: [library(*a) for a in largs], n)
             if library else (None, {}))
@@ -1272,6 +1426,7 @@ def search_phase(card: str) -> list[dict]:
             + device_text(dev_ms, dev_events, want)
             + ("" if library is None else
                "; library device " + device_text(lib_dev_ms, lib_events, n))
+            + f" (by device op {json.dumps(ops_ms)})"
             + f"; largest call {big['query']} {big['shapes']} kernel "
             f"{big['ms']:.4f} ms bound {big['bound_ms']:.5f} ms"
         )
@@ -1285,13 +1440,20 @@ def search_phase(card: str) -> list[dict]:
             ),
             "ms": passes["ms"], "plain_ms": passes["plain_ms"],
             "bound_ms": sum(by.values()), "device_ms": dev_ms,
-            "device_events": dev_events, "library_device_events": lib_events,
+            "device_events": dev_events, "device_ops_ms": ops_ms,
+            "library_device_events": lib_events,
             "bound_by": max(by, key=by.get),
             "library_ms": passes["library_ms"], "library_device_ms": lib_dev_ms,
             "matches_plain": True, "calls": len(recs),
         })
 
-    breakdown = launch_breakdown(*calls.calls["searchsorted"][0][1])
+    breakdowns = {
+        "searchsorted": searchsorted_breakdown(*calls.calls["searchsorted"][0][1]),
+        "elca_segsum": segsum_breakdown(
+            *max(calls.calls["elca_segsum"], key=lambda c: c[1][1].numel())[1]),
+        "intersect": intersect_breakdown(
+            *max(calls.calls["intersect"], key=lambda c: c[1][2])[1]),
+    }
     fused_breakdowns = [
         fused_breakdown(b, s) for which in fused_search.ROUTES
         for b, s in [next(((b, s) for _l, b, s in rounds if fused_route(b, s) == which),
@@ -1302,7 +1464,7 @@ def search_phase(card: str) -> list[dict]:
     with open(OUT_DIR / "chip_smoke_rounds.json", "w") as f:
         json.dump({"card": card, "random": random_recs, "rounds": round_recs,
                    "chained": chained_recs, "main_path_profile": profile_rec,
-                   "per_query": per_query, "searchsorted_breakdown": breakdown,
+                   "per_query": per_query, "chained_breakdowns": breakdowns,
                    "fused_breakdowns": fused_breakdowns, "fused_batches": shapes,
                    "intersect_windows": windows,
                    "intersect_random_windows": random_windows},
@@ -1369,6 +1531,32 @@ class DecodeRecorder:
 
     def __exit__(self, *exc):
         module("decode_attention").decode_attention = self._orig
+
+
+def decode_breakdown(q, k, v, cache_len) -> dict:
+    """``host_breakdown`` of one ``decode_attention`` call on these inputs."""
+    import torch
+
+    da = module("decode_attention")
+    b, h, hd = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    chunk, splits = da.split_plan(b, hk, h // hk, t)
+    out = torch.empty_like(q)
+    part = torch.empty(max(splits, 2) * b * h * (hd + 2), dtype=torch.float32, device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), cache_len.data_ptr(), b, t, h, hk, hd,
+            1.0 / math.sqrt(hd), chunk, splits, out.data_ptr(), part.data_ptr())
+    rec = {"shapes": [list(q.shape), list(k.shape)], "splits": splits}
+    rec.update(host_breakdown(
+        f"decode_attention at q {rec['shapes'][0]} k {rec['shapes'][1]} ({splits} splits)",
+        da._LAUNCH[q.dtype], q.device.index, args,
+        {"checks": lambda: da._check(q, k, v, cache_len),
+         "plan": lambda: da.split_plan(b, hk, h // hk, t),
+         "allocation": lambda: (torch.empty_like(q), torch.empty(
+             splits * b * h * (hd + 2), dtype=torch.float32, device=q.device)),
+         "pointers": lambda: (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              cache_len.data_ptr(), out.data_ptr(), part.data_ptr())},
+        {"whole_call_us": lambda: da.decode_attention(q, k, v, cache_len)}))
+    return rec
 
 
 def decode_bound(q, k, cache_len) -> tuple[float, str, int, int]:
@@ -1593,6 +1781,7 @@ def lm_phase() -> dict:
         + "; library device " + device_text(lib_dev_ms, lib_events, len(calls))
     )
     del sdpa_args
+    breakdown = decode_breakdown(*calls[-1])
 
     # where a decode step's time goes: one profiled plain run of 8 steps
     wall_ms, dev, _ = profile_pass(lambda: launcher.serve(model, cfg, prompts, 9))
@@ -1615,6 +1804,7 @@ def lm_phase() -> dict:
             "runs": {m: {k: r[k] for k in ("t_prefill", "t_decode", "savings", "launches",
                                            "tok_s")} for m, r in runs.items()},
             "decode_vs_prefill": agree, "decode_32k": big, "profile": profile_rec,
+            "host_breakdown": breakdown,
             "random": recs["random"],
             "calls": recs["calls"],
         }, f, indent=1)

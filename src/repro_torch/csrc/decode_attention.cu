@@ -53,10 +53,12 @@
 //     order, so the result is deterministic and no float atomics are used.
 //     When S == 1 the split kernel writes o itself.
 //
-// Entry points: decode_attention_f32 and decode_attention_bf16 (plain C,
-// loaded with ctypes).  Up to two launches on the caller's stream, no
+// Entry points: decode_attention_f32 and decode_attention_bf16 (plain C;
+// exported to Python by pyentry.cuh as the module decode_attention).  Up to two launches on the caller's stream, no
 // allocation (the wrapper allocates the partials), no synchronisation; each
 // returns the first cudaError_t it saw (0 on success).
+
+#include "pyentry.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -575,3 +577,6 @@ extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v
   return launch<__nv_bfloat16>(
       make_args(q, k, v, cache_len, b, t, h, hk, hd, scale, chunk, splits, o, part, stream));
 }
+
+PYENTRY_MODULE(decode_attention, PYENTRY_FN(decode_attention_f32),
+               PYENTRY_FN(decode_attention_bf16))

@@ -45,10 +45,12 @@
 //     one per parent among a warp's lanes), keep.  The wrapper gives it scratch planes, which the first launch
 //     initialises.
 //
-// Entry point: fused_search_launch (plain C, loaded with ctypes).  It launches
-// the route's kernels on the caller's stream, allocates nothing, does not
-// synchronise, and returns the first cudaError_t seen (0 on success).
+// Entry point: fused_search_launch (plain C; exported to Python by
+// pyentry.cuh as the module fused_search).  It launches the route's kernels
+// on the caller's stream, allocates nothing, does not synchronise, and
+// returns the first cudaError_t seen (0 on success).
 
+#include "pyentry.cuh"
 #include "search.cuh"
 
 namespace {
@@ -76,15 +78,6 @@ inline size_t row_smem(int m0, int k1, int semantics) {
   if (semantics == kSlca) ints += m0;                              // cnt
   if (semantics == kElca) ints += static_cast<size_t>(2 * k1 + 1) * m0;  // ndo, sums
   return ints * sizeof(int) + m0;                                  // + ca bytes
-}
-
-// Adds v of every lane in `group` (lanes of one warp that add into the same
-// address, __match_any_sync) into *addr with one atomic.  Many CAs share a
-// parent (at 20,000 releases every release's is the root), and atomics on
-// one address serialise.
-__device__ __forceinline__ void group_add(int* addr, int v, unsigned group) {
-  const int total = __reduce_add_sync(group, v);
-  if (static_cast<int>(threadIdx.x & 31) == __ffs(group) - 1) atomicAdd(addr, total);
 }
 
 // The valid length of other list j of row r (the bucket when other_n is not
@@ -382,3 +375,5 @@ extern "C" int fused_search_launch(
                                      k1, semantics, keep_ids, keep_mask);
   return static_cast<int>(cudaGetLastError());
 }
+
+PYENTRY_MODULE(fused_search, PYENTRY_FN(fused_search_launch))

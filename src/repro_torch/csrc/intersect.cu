@@ -39,10 +39,11 @@
 // next list's copy run while this list is searched.  ca and nd are written
 // once per entry, with no atomics.
 //
-// Both entry points are plain C, loaded with ctypes: one launch on the
-// caller's stream, no allocation, no synchronisation; they return the
-// cudaError_t of the launch (0 on success).
+// Both entry points are plain C, exported to Python by pyentry.cuh as the
+// module intersect: one launch on the caller's stream, no allocation, no
+// synchronisation; they return the cudaError_t of the launch (0 on success).
 
+#include "pyentry.cuh"
 #include "search.cuh"
 
 namespace {
@@ -118,3 +119,6 @@ extern "C" int intersect_lists_launch(const int* buf, const int* table, int k,
                                                                 n, ca, nd);
   return static_cast<int>(cudaGetLastError());
 }
+
+PYENTRY_MODULE(intersect, PYENTRY_FN(intersect_launch),
+               PYENTRY_FN(intersect_lists_launch))

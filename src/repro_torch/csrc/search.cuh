@@ -1,6 +1,8 @@
 // Shared pieces of the port's search kernels: launch shape, the binary
-// searches every kernel runs, and the staged-window membership of a tile of
-// sorted keys that the intersect and fused kernels share.  Header only; each
+// searches every kernel runs, the staged windows of a sorted row in shared
+// memory (searchsorted, elca_segsum) and the staged-window membership of a
+// tile of sorted keys that the intersect and fused kernels share, and the
+// warp-combined atomic add (fused_search, elca_segsum).  Header only; each
 // kernel source is built on its own (see repro_torch/kernels/_build.py, which
 // hashes this file too).
 #pragma once
@@ -110,13 +112,20 @@ struct Staged {
   int lo, hi, step, shift, count;
 };
 
-__device__ __forceinline__ Staged staged_of(const int* row, int lo, int hi) {
+//
+// A sample takes at least min_step ids a step: every sample is a separate
+// 32-byte read, so a kernel whose every block stages the same long row reads
+// less of L2 with fewer samples, while the segment a search finishes in stays
+// within one or two 128-byte lines up to a step of 32.
+__device__ __forceinline__ Staged staged_of(const int* row, int lo, int hi,
+                                            int min_step = 2) {
   const int w = hi - lo;
   Staged s{lo, hi, 1, 0, w};
   if (w <= kStage - 3) {
     s.shift = static_cast<int>((reinterpret_cast<uintptr_t>(row + lo) >> 2) & 3);
   } else {
-    s.step = max(2, (w + kStage - 1) / kStage);  // 2 for 4,094-4,096 ids too
+    // at least 2, for 4,094-4,096 ids too
+    s.step = max(max(2, min_step), (w + kStage - 1) / kStage);
     s.count = (w + s.step - 1) / s.step;
   }
   return s;
@@ -226,6 +235,16 @@ __device__ void tile_membership(int slot0, int slot1, int k1, ListOf list_of,
     }
     __syncthreads();
   }
+}
+
+// Adds v of every lane in `group` (lanes of one warp that add into the same
+// address, __match_any_sync) into *addr (global or shared memory) with one
+// atomic.  Every lane of the group must call it.  Many CAs share a parent
+// (at 20,000 releases every release's is the root), and atomics on one
+// address serialise.
+__device__ __forceinline__ void group_add(int* addr, int v, unsigned group) {
+  const int total = __reduce_add_sync(group, v);
+  if (static_cast<int>(threadIdx.x & 31) == __ffs(group) - 1) atomicAdd(addr, total);
 }
 
 // Blocks along x cover `n` threads' worth of work.

@@ -23,7 +23,6 @@ whether it made one launch or two; plain-version calls do not count).
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 
@@ -32,16 +31,10 @@ import torch
 from ._build import CSRC, Entry
 
 _SOURCE = CSRC / "decode_attention.cu"
-_ARGS = (
-    [ctypes.c_void_p] * 4  # q k v cache_len
-    + [ctypes.c_int] * 5  # B T H Hk hd
-    + [ctypes.c_float]  # scale
-    + [ctypes.c_int] * 2  # chunk splits
-    + [ctypes.c_void_p] * 2  # out partials
-)
+# q k v cache_len, B T H Hk hd, scale, chunk splits, out partials
 _LAUNCH = {
-    torch.float32: Entry(_SOURCE, "decode_attention_f32", _ARGS),
-    torch.bfloat16: Entry(_SOURCE, "decode_attention_bf16", _ARGS),
+    torch.float32: Entry(_SOURCE, "decode_attention_f32"),
+    torch.bfloat16: Entry(_SOURCE, "decode_attention_bf16"),
 }
 MAX_HEAD_DIM = 256
 MAX_ROWS = 16  # query rows a block serves (kMaxRows in the source)
@@ -154,6 +147,6 @@ def decode_attention(q, k, v, cache_len) -> torch.Tensor:
             if splits > 1 else None)
     _LAUNCH[q.dtype](dev.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), cache_len.data_ptr(),
                      b, t, h, hk, hd, 1.0 / math.sqrt(hd), chunk, splits,
-                     out.data_ptr(), None if part is None else part.data_ptr())
+                     out.data_ptr(), 0 if part is None else part.data_ptr())
     LAUNCHES += 1
     return out

@@ -3,29 +3,37 @@
 The ELCA step of the chained query path (``ops.run_query_chained``): each
 CA's NDesc per keyword is added onto its parent CA.  For CUDA tensors
 :func:`elca_child_sums` launches the hand-written kernel in
-``csrc/elca_segsum.cu`` (one thread per child, binary search of its parent,
-integer atomics); for CPU tensors it runs :func:`elca_child_sums_plain`,
-the same function in plain PyTorch (``searchsorted`` + ``index_add_``, not
-the dense mask contraction of ``ref.elca_segsum_ref``, which needs
-``mi * mj`` memory).  There is no fallback between the two: a CUDA tensor
-reaches the kernel or raises.
+``csrc/elca_segsum.cu`` (a thread per child finds its parent in ``ca``
+staged in shared memory, and the children of one parent add up in the warp;
+a small call adds up in one block's shared memory and writes the output
+once, a large one adds each block's sums into the output once a parent);
+for CPU tensors it runs :func:`elca_child_sums_plain`, the same function in
+plain PyTorch (``searchsorted`` + ``index_add_``, not the dense mask
+contraction of ``ref.elca_segsum_ref``, which needs ``mi * mj`` memory).
+There is no fallback between the two: a CUDA tensor reaches the kernel or
+raises.
 
 ``LAUNCHES`` counts kernel launches (plain-version calls do not count).
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from ._build import CSRC, Entry, int32_device
 
 _SOURCE = CSRC / "elca_segsum.cu"
-_LAUNCH = Entry(_SOURCE, "elca_segsum_launch", [
-    ctypes.c_void_p, ctypes.c_int,  # ca mi
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # par nd mj k
-    ctypes.c_void_p,  # out
-])
+_LAUNCH = Entry(_SOURCE, "elca_segsum_launch")  # ca mi par nd mj k out
+
+# the kernel's dense route (one block, no memset) takes a call of at most
+# ONE_BLOCK children whose output has at most DENSE_INTS ints (kOneBlock and
+# kDenseInts in the source); larger calls take the tiles route
+ONE_BLOCK = 1024
+DENSE_INTS = 16384
+
+
+def route(mi: int, mj: int, k: int) -> str:
+    """The kernel's route for these shapes: ``"dense"`` or ``"tiles"``."""
+    return "dense" if mj <= ONE_BLOCK and k * mi <= DENSE_INTS else "tiles"
 
 LAUNCHES = 0  # kernel launches in this process (see module docstring)
 
@@ -57,16 +65,15 @@ def elca_child_sums(
     """
     global LAUNCHES
     index = int32_device(ca, par, nd)
-    if ca.dim() != 1 or par.dim() != 1 or nd.dim() != 2 or nd.shape[1] != len(par):
+    sc, sp, sn = ca.shape, par.shape, nd.shape
+    if len(sc) != 1 or len(sp) != 1 or len(sn) != 2 or sn[1] != sp[0]:
         raise ValueError(
-            f"want ca [MI], par [MJ], nd [K, MJ]; got {tuple(ca.shape)}, "
-            f"{tuple(par.shape)}, {tuple(nd.shape)}"
+            f"want ca [MI], par [MJ], nd [K, MJ]; got {tuple(sc)}, {tuple(sp)}, {tuple(sn)}"
         )
     if index < 0:
         return elca_child_sums_plain(ca, par, nd)
-    k, mj = nd.shape
-    out = torch.empty((k, ca.numel()), dtype=torch.int32, device=ca.device)
-    _LAUNCH(index, ca.data_ptr(), ca.numel(), par.data_ptr(), nd.data_ptr(), mj, k,
+    out = nd.new_empty((sn[0], sc[0]))  # [K, MI] int32, as nd
+    _LAUNCH(index, ca.data_ptr(), sc[0], par.data_ptr(), nd.data_ptr(), sn[1], sn[0],
             out.data_ptr())
     LAUNCHES += 1
     return out

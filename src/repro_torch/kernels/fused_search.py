@@ -7,8 +7,8 @@ where dropped) and the keep mask.  L0 order is preserved, so each row's
 results come out ascending with no sort.
 
 For CUDA tensors it launches the hand-written kernel in
-``csrc/fused_search.cu`` (built with ``nvcc`` at first use, loaded with
-``ctypes``); for CPU tensors it runs :func:`fused_search_batch_plain`, the
+``csrc/fused_search.cu`` (built with ``nvcc`` at first use and imported,
+``_build``); for CPU tensors it runs :func:`fused_search_batch_plain`, the
 same function in plain PyTorch.  There is no fallback between the two: a
 CUDA tensor either reaches the kernel or raises.  No shape is capped, so
 every ``m0`` bucket the PlanCache produces runs here.  :func:`route` picks
@@ -22,8 +22,6 @@ whatever the route (plain-version calls do not count).
 """
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -33,12 +31,9 @@ from .shapes import INT_PAD
 _SEMANTICS = {"slca": 0, "elca": 1, "ca": 2}
 
 _SOURCE = CSRC / "fused_search.cu"
-_LAUNCH = Entry(
-    _SOURCE, "fused_search_launch",
-    [ctypes.c_void_p] * 7  # ids0 pid0 nd0 other_ids other_nd n0 other_n
-    + [ctypes.c_int] * 6  # rows m0 k1 mo semantics route
-    + [ctypes.c_void_p] * 7,  # keep_ids keep_mask ca ndo cnt sums ppos
-)
+# ids0 pid0 nd0 other_ids other_nd n0 other_n, rows m0 k1 mo semantics route,
+# keep_ids keep_mask ca ndo cnt sums ppos
+_LAUNCH = Entry(_SOURCE, "fused_search_launch")
 
 ROUTES = ("rows", "tiles")  # the C entry point's route numbers, in order
 # the rows route's shared memory, as csrc/fused_search.cu lays it out

@@ -16,24 +16,13 @@ count).
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ._build import CSRC, Entry, int32_device
 
 _SOURCE = CSRC / "intersect.cu"
-_LAUNCH = Entry(_SOURCE, "intersect_launch", [
-    ctypes.c_void_p, ctypes.c_int,  # a na
-    ctypes.c_void_p, ctypes.c_int,  # q nq
-    ctypes.c_void_p, ctypes.c_void_p,  # found pos
-])
-
-_LISTS = Entry(_SOURCE, "intersect_lists_launch", [
-    ctypes.c_void_p, ctypes.c_void_p,  # buf table
-    ctypes.c_int, ctypes.c_int,  # k n
-    ctypes.c_void_p, ctypes.c_void_p,  # ca nd
-])
+_LAUNCH = Entry(_SOURCE, "intersect_launch")  # a na q nq found pos
+_LISTS = Entry(_SOURCE, "intersect_lists_launch")  # buf table k n ca nd
 
 LAUNCHES = 0  # kernel launches in this process (see module docstring)
 

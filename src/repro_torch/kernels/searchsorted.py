@@ -3,7 +3,8 @@
 The membership step of the batched search under ``backend="chained"``
 (``ops.membership_chained``, registered with ``search_vec``).  For CUDA
 tensors :func:`searchsorted` launches the hand-written kernel in
-``csrc/searchsorted.cu`` (one thread per query, binary search); for CPU
+``csrc/searchsorted.cu`` (a block per tile of queries of one row; the
+tile's window of the row staged in shared memory, whole or sampled); for CPU
 tensors it runs :func:`searchsorted_plain`, the same function in plain
 PyTorch.  There is no fallback between the two: a CUDA tensor reaches the
 kernel or raises.
@@ -12,19 +13,12 @@ kernel or raises.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ._build import CSRC, Entry, int32_device
 
 _SOURCE = CSRC / "searchsorted.cu"
-_LAUNCH = Entry(
-    _SOURCE, "searchsorted_launch",
-    [ctypes.c_void_p] * 2  # a q
-    + [ctypes.c_int] * 3  # rows m nq
-    + [ctypes.c_void_p],  # out
-)
+_LAUNCH = Entry(_SOURCE, "searchsorted_launch")  # a q rows m nq out
 
 LAUNCHES = 0  # kernel launches in this process (see module docstring)
 
@@ -43,14 +37,12 @@ def searchsorted(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """
     global LAUNCHES
     index = int32_device(a, q)
-    if a.ndim != 2 or q.ndim != 2 or q.shape[0] != a.shape[0]:
-        raise ValueError(
-            f"want a [B, M] and q [B, Q], got {tuple(a.shape)} and {tuple(q.shape)}"
-        )
+    sa, sq = a.shape, q.shape
+    if len(sa) != 2 or len(sq) != 2 or sq[0] != sa[0]:
+        raise ValueError(f"want a [B, M] and q [B, Q], got {tuple(sa)} and {tuple(sq)}")
     if index < 0:
         return searchsorted_plain(a, q)
-    rows, m = a.shape
     out = torch.empty_like(q)  # [B, Q] int32, as q
-    _LAUNCH(index, a.data_ptr(), q.data_ptr(), rows, m, q.shape[1], out.data_ptr())
+    _LAUNCH(index, a.data_ptr(), q.data_ptr(), sa[0], sa[1], sq[1], out.data_ptr())
     LAUNCHES += 1
     return out

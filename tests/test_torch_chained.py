@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 from test_fused import keyword_list, preorder_tree, random_items
-from test_torch_chained_cuda import lists_case, pack_lists
+from test_torch_chained_cuda import lists_case, pack_lists, segsum_case
 
 from repro.core import NodeSpec, build_tree
 from repro.core import brute as ref_brute
@@ -203,6 +203,59 @@ def test_elca_child_sums_matches_reference(m, k):
     )
     np.testing.assert_array_equal(padded[:, :m].numpy(), want)
     assert not padded[:, m:].any()
+
+
+@pytest.mark.parametrize("na,nq,order", [(20_000, 3_000, "random"),
+                                          (20_000, 3_000, "ascending"),
+                                          (9_000, 1_500, "random")])
+def test_searchsorted_rows_past_the_stage_match_reference(na, nq, order):
+    """Rows wider than the 4,093 ids the kernel stages whole (the card
+    samples them): the plain version == the reference kernel."""
+    rng = np.random.default_rng(na + nq + len(order))
+    a = sorted_unique(rng, na, hi=10**6)
+    q = rng.integers(-5, 10**6 + 5, size=nq).astype(np.int32)
+    if order == "ascending":
+        q = np.sort(q)
+    want = ref_ops.searchsorted_positions(a, q, bq=1024, ba=4096)
+    got = ops.searchsorted_positions(t(a), t(q))
+    np.testing.assert_array_equal(got.numpy(), want)
+    rows = np.stack([pad_to(a, 4096, INT_PAD), pad_to(a + 1, 4096, INT_PAD)])
+    batched = searchsorted.searchsorted(t(rows), t(np.stack([q, q])))
+    np.testing.assert_array_equal(batched[0].numpy(), want)
+    np.testing.assert_array_equal(batched[1].numpy(), np.searchsorted(a + 1, q, side="left"))
+
+
+@pytest.mark.parametrize("kind,mi,mj,k,pad", [
+    ("star", 2_000, 5_000, 2, 0),
+    ("star", 3, 3_000, 1, 3),
+    ("hot", 3_000, 3_000, 3, 0),
+    ("hot", 500, 2_000, 4, 5),
+])
+def test_elca_child_sums_star_and_hot_parents_match_reference(kind, mi, mj, k, pad):
+    """A star (every child under one parent) and a few hot parents among
+    cold ones, mi != mj, INT_PAD tails: the plain version == the reference
+    kernel (interpret mode)."""
+    rng = np.random.default_rng(mi + mj + k)
+    ca, par, nd = (x.astype(np.int32) for x in segsum_case(rng, kind, mi, mj, k, pad))
+    want = ref_ops.elca_child_sums(ca, par, nd, bi=1024, bj=1024)
+    got = ops.elca_child_sums(t(ca), t(par), t(nd))
+    np.testing.assert_array_equal(got.numpy(), want)
+    if kind == "star":
+        assert (np.count_nonzero(want, axis=1) <= 1).all()
+
+
+def test_elca_route_mirrors_the_source():
+    """``elca_segsum.route`` (what ``chip_smoke.py`` counts launches by)
+    uses the kernel source's own limits."""
+    import re
+
+    text = (_build.CSRC / "elca_segsum.cu").read_text()
+    limits = dict(re.findall(r"constexpr int (kOneBlock|kDenseInts) = (\d+);", text))
+    assert int(limits["kOneBlock"]) == elca_segsum.ONE_BLOCK
+    assert int(limits["kDenseInts"]) == elca_segsum.DENSE_INTS
+    assert elca_segsum.route(4000, 1024, 4) == "dense"
+    assert elca_segsum.route(4000, 1025, 4) == "tiles"  # children past one block
+    assert elca_segsum.route(4097, 1024, 4) == "tiles"  # output past shared memory
 
 
 def test_wrappers_refuse_what_the_kernels_cannot_take():

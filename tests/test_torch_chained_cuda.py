@@ -177,6 +177,147 @@ def test_elca_segsum_kernel_matches_plain(cuda, m, k, pad):
     assert torch.equal(got, want) and torch.equal(again, want)
 
 
+def searchsorted_rows(rng, rows, m, fill=1.0, hi=None):
+    """[rows, m] ascending int32 rows of about ``fill * m`` unique ids below
+    ``hi`` each, INT_PAD after them."""
+    a = np.full((rows, m), INT_PAD, np.int32)
+    for r in range(rows):
+        row = sorted_unique(rng, max(1, int(fill * m)), hi=hi or 10 * m)
+        a[r, : row.size] = row[:m]
+    return a
+
+
+def at_phase(dev, x, gap):
+    """``x`` on the card as a contiguous view starting ``gap`` ints into its
+    buffer: another 16-byte phase."""
+    flat = np.concatenate([np.full(gap, -7, np.int32), np.ravel(x).astype(np.int32)])
+    return on(dev, flat)[gap:].view(x.shape)
+
+
+@pytest.mark.parametrize("width", [4092, 4093, 4094, 4095, 4096, 4097, 8192, 8193])
+@pytest.mark.parametrize("gap", [0, 1, 2, 3])
+def test_searchsorted_windows_at_the_buffer_edge(cuda, width, gap):
+    """A tile of queries whose window in the row holds exactly ``width`` ids:
+    staged whole up to 4,093, sampled from 4,094 on, at each 16-byte phase of
+    the row (three rows of odd width: each row at another phase too)."""
+    rng = np.random.default_rng(width * 4 + gap)
+    m = 2 * width + 7
+    a = searchsorted_rows(rng, 3, m, fill=1.0, hi=40 * m)
+    q = np.empty((3, 1024), np.int32)
+    for r in range(3):
+        lo, hi = a[r, 5], a[r, 5 + width]  # the window: lower bounds of lo and hi
+        keys = rng.integers(lo, hi + 1, size=1024)
+        keys[:4] = (lo, hi, lo + 1, hi - 1)
+        q[r] = rng.permutation(keys)
+    a, q = at_phase(cuda, a, gap), at_phase(cuda, q, (gap + 1) % 4)
+    got = ss.searchsorted(a, q)
+    assert torch.equal(got, ss.searchsorted_plain(a, q))
+
+
+SEARCHSORTED_SHAPES = [  # (rows, m, nq, fill, queries)
+    (12, 131_072, 32_768, 0.4, "ascending"),  # the service's widest call
+    (4, 131_072, 65_536, 0.5, "ascending"),
+    (3, 100_000, 5_000, 0.9, "random"),  # every tile's window sampled
+    (2, 3_000, 70_000, 1.0, "random"),  # rows staged whole, many tiles
+    (5, 1_000, 2_000, 0.3, "pad"),  # INT_PAD queries: empty windows
+    (70_000, 8, 3, 1.0, "random"),  # more rows than a grid's y
+]
+
+
+@pytest.mark.parametrize("rows,m,nq,fill,queries", SEARCHSORTED_SHAPES)
+def test_searchsorted_rows_past_the_stage(cuda, rows, m, nq, fill, queries):
+    """Rows on both sides of the 4,093-id stage, queries ascending (each
+    row's L0 ids and an INT_PAD tail, as the service sends them), in random
+    order, or all INT_PAD."""
+    rng = np.random.default_rng(rows + m + nq)
+    a = searchsorted_rows(rng, rows, m, fill)
+    if queries == "pad":
+        q = np.full((rows, nq), INT_PAD, np.int32)
+        q[:, 0] = -1
+    else:
+        q = rng.integers(-5, 10 * m + 5, size=(rows, nq)).astype(np.int32)
+        if queries == "ascending":
+            q = np.sort(q, axis=1)
+            q[:, nq - nq // 8:] = INT_PAD
+    a, q = on(cuda, a), on(cuda, q)
+    got = ss.searchsorted(a, q)
+    assert torch.equal(got, ss.searchsorted_plain(a, q))
+
+
+def segsum_case(rng, kind, mi, mj, k, pad):
+    """(ca, par, nd) of one child-sum call: ca of mi ascending unique ids and
+    ``pad`` INT_PAD; mj children (``pad`` of them with no parent) whose
+    parents are one id of ca (``"star"``), a few hot ids and scattered cold
+    ones (``"hot"``), none (``"none"``), or any id of ca, some not in it,
+    or none (``"random"``)."""
+    ca = sorted_unique(rng, mi, hi=50 * mi + 100)
+    if kind == "star":
+        par = np.full(mj, ca[ca.size // 2])
+    elif kind == "hot":
+        hot = rng.choice(ca, size=min(3, ca.size), replace=False)
+        par = np.where(rng.random(mj) < 0.9, rng.choice(hot, size=mj),
+                       rng.choice(ca, size=mj))
+    elif kind == "none":
+        par = np.full(mj, -1)
+    else:
+        par = np.where(rng.random(mj) < 0.8, rng.choice(ca, size=mj),
+                       rng.integers(-3, 50 * mi + 100, size=mj))
+    par[rng.random(mj) < 0.05] = -1
+    nd = rng.integers(-50, 100, size=(k, mj))
+    ca = np.concatenate([ca, np.full(pad, INT_PAD)])
+    par = np.concatenate([par, np.full(pad, -1)])
+    nd = np.concatenate([nd, rng.integers(1, 9, size=(k, pad))], axis=1)
+    return ca, par, nd
+
+
+SEGSUM_CASES = [  # (kind, mi, mj, k, pad)
+    ("star", 60_001, 60_001, 2, 0),  # the root of 20,000 releases
+    ("star", 3, 70_000, 1, 3),
+    ("hot", 60_001, 60_001, 3, 0),
+    ("hot", 4_093, 9_000, 4, 2),  # ca staged whole
+    ("hot", 200, 511, 2, 1),  # one block: no memset
+    ("none", 20_000, 20_000, 4, 5),
+    ("random", 100, 70_000, 1, 0),  # mi != mj
+    ("random", 60_001, 10, 2, 7),  # one block zeroes a wide output
+    ("random", 4_094, 4_094, 4, 17),  # ca sampled
+    ("random", 1_000, 3_000, 7, 0),  # past 48 KB of shared memory
+    ("random", 500, 1_500, 33, 0),  # two passes over the keywords
+    ("random", 900, 1_024, 26, 0),  # 1,024 children, output past the dense route
+    ("hot", 4_000, 1_024, 4, 0),  # the dense route at its edges
+    ("hot", 4_000, 1_025, 4, 0),  # one child past it
+    ("star", 10, 33, 2, 0),  # one block of 64 threads
+    ("random", 300, 700, 7, 0),  # the dense route past the prefetched keywords
+]
+
+
+@pytest.mark.parametrize("kind,mi,mj,k,pad", SEGSUM_CASES)
+def test_elca_segsum_stars_hot_parents_and_keywords(cuda, kind, mi, mj, k, pad):
+    """Parents in any order (not only before their children), mi != mj, a
+    star, a few hot parents among cold ones, no parents at all, and K = 1..4,
+    7, 26 and 33, with INT_PAD tails, on both routes and at their edge;
+    repeat calls are identical."""
+    rng = np.random.default_rng(mi + 3 * mj + k)
+    args = [on(cuda, x) for x in segsum_case(rng, kind, mi, mj, k, pad)]
+    got = elca_segsum.elca_child_sums(*args)
+    again = elca_segsum.elca_child_sums(*args)
+    want = elca_segsum.elca_child_sums_plain(*args)
+    assert torch.equal(got, want) and torch.equal(again, want)
+    if kind == "star":
+        assert int(got.ne(0).sum(dim=1).max()) <= 1
+
+
+def test_elca_segsum_on_a_side_stream(cuda):
+    rng = np.random.default_rng(17)
+    args = [on(cuda, x) for x in segsum_case(rng, "hot", 30_000, 40_000, 2, 3)]
+    want = elca_segsum.elca_child_sums_plain(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = elca_segsum.elca_child_sums(*args)
+    side.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("semantics", ["slca", "elca", "ca"])
 @pytest.mark.parametrize("k", [1, 2, 4])
 def test_run_query_chained_on_the_card_matches_cpu(cuda, semantics, k):
