@@ -50,7 +50,20 @@ Phases (any failure exits non-zero, and no result line is printed):
      lookup, and the entry call beside a ``ctypes`` call of the same C
      function in the same library (timed in turns), beside the whole call
      (and ``torch.searchsorted``, in turns);
-  8. first, one decode-attention call at the decode_32k cell's shape (B
+  8. the sharded cluster on the same corpus: ``build_cluster`` into 4
+     shards on ``cuda``, then ``backends="fused"`` on the thread and process
+     transports and ``"chained"`` on the thread and remote transports (4
+     shard servers started by ``launch_cluster_servers``), each beside a
+     mono ``QueryService`` on the same backend: the nine paper queries and
+     ``tests/test_cluster.py``'s seven cross-shard cases x slca/elca, one at
+     a time with the services in turns (p50, max), then all at once through
+     ``submit`` (wall, queries per second).  Every answer equals
+     ``"scalar"``; the in-process fused_search / searchsorted counter is
+     zeroed before and read after the thread transport's run (> 0), every
+     shard's PlanCache launches are > 0, and the shard processes' device
+     memory is read as the card's used memory before and after they exit
+     (nvidia-smi's compute apps printed beside);
+  9. first, one decode-attention call at the decode_32k cell's shape (B
      128, T 32,768) against its plain version, timed by CUDA events, by a
      profiled pass of 10 and beside ``scaled_dot_product_attention``; then
      LM serving: SmolLM-135M at its published widths in bf16 with seeded
@@ -66,13 +79,14 @@ Phases (any failure exits non-zero, and no result line is printed):
      ``scaled_dot_product_attention`` (CUDA events and profiler device
      time) and the host breakdown of one call; last, one profiled serving
      run of 8 decode steps (device busy and idle share);
-  9. a ``{"kernels": [...]}`` line with all five kernels, the nvidia-smi
+  10. a ``{"kernels": [...]}`` line with all five kernels, the nvidia-smi
      line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Profiler device times are reported only from a pass in which the profiler
 recorded every launch the pass made (``expected_launches``), else as not
-measured.  Per-call details go to ``chiprun_out/chip_smoke_rounds.json``
-(search) and ``chiprun_out/chip_smoke_lm.json`` (LM).
+measured.  Per-call details go to ``OUT_DIR``: ``chip_smoke_rounds.json``
+(search), ``chip_smoke_cluster.json`` (cluster) and ``chip_smoke_lm.json``
+(LM).
 """
 from __future__ import annotations
 
@@ -83,6 +97,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 from pathlib import Path
 from typing import NamedTuple
 
@@ -97,7 +112,7 @@ SEMANTICS = ("slca", "elca")
 INDEXES = ("dag", "tree")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 SCALAR_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
-TIMING_REPS = 25
+TIMING_REPS = 15  # was 25; the cluster phase shares the run's time limit
 OUT_DIR = ROOT / "chiprun_out"
 
 
@@ -456,25 +471,32 @@ def plain_of(batch: dict) -> dict:
     return {n: t for n, t in batch.items() if n != "other_n"}
 
 
-def check_kernel(batch: dict, semantics: str) -> dict:
-    """Kernel == plain on one packed batch (raises otherwise); times both."""
+def fused_vs_plain(batch: dict, semantics: str) -> tuple[int, int]:
+    """Kernel == plain on one packed batch (raises otherwise): the largest
+    difference of the result ids (0) and the number of results kept."""
     import torch
 
     fused_search_batch, fused_search_batch_plain, _ = functions("fused_search")
-    plain_args = plain_of(batch)
     ids, mask = fused_search_batch(**batch, semantics=semantics)
-    want_ids, want_mask = fused_search_batch_plain(**plain_args, semantics=semantics)
+    want_ids, want_mask = fused_search_batch_plain(**plain_of(batch), semantics=semantics)
     torch.cuda.synchronize()
     if not (torch.equal(ids, want_ids) and torch.equal(mask, want_mask)):
         bad = int((ids != want_ids).sum()) + int((mask != want_mask).sum())
         raise AssertionError(f"kernel != plain on {bad} slots ({semantics})")
-    err = int((ids.long() - want_ids.long()).abs().max())
+    return int((ids.long() - want_ids.long()).abs().max()), int(mask.sum())
+
+
+def check_kernel(batch: dict, semantics: str) -> dict:
+    """Kernel == plain on one packed batch (raises otherwise); times both."""
+    fused_search_batch, fused_search_batch_plain, _ = functions("fused_search")
+    plain_args = plain_of(batch)
+    err, kept = fused_vs_plain(batch, semantics)
     rows, m0 = batch["ids0"].shape
     rec = {
         "rows": int(rows), "k": int(batch["other_ids"].shape[1] + 1),
         "m0": int(m0), "mo": int(batch["other_ids"].shape[2]),
         "semantics": semantics, "max_abs_err": err,
-        "kept": int(mask.sum()), "route": fused_route(batch, semantics),
+        "kept": kept, "route": fused_route(batch, semantics),
     }
     bound_ms, bound_by, n_bytes, n_ops = bound_of(batch, semantics)
     rec.update(
@@ -664,11 +686,12 @@ def shapes_of(name: str, args) -> list:
     return [list(a.shape) for a in args]
 
 
-def check_chained(name: str, args) -> dict:
-    """Kernel == plain on one call's inputs (raises otherwise); times all."""
+def chained_vs_plain(name: str, args) -> int:
+    """Kernel == plain on one call's inputs (raises otherwise): the largest
+    difference of the outputs (0)."""
     import torch
 
-    kernel, plain, library = functions(name)
+    kernel, plain, _ = functions(name)
     got, want = kernel(*args), plain(*args)
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
@@ -676,11 +699,17 @@ def check_chained(name: str, args) -> dict:
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
         bad = sum(int((g != w).sum()) for g, w in zip(got, want))
         raise AssertionError(f"{name} kernel != plain on {bad} outputs")
-    err = max(
+    return max(
         (int((g.long() - w.long()).abs().max()) for g, w in zip(got, want)
          if g.numel()),
         default=0,
     )
+
+
+def check_chained(name: str, args) -> dict:
+    """Kernel == plain on one call's inputs (raises otherwise); times all."""
+    kernel, plain, library = functions(name)
+    err = chained_vs_plain(name, args)
     bound_ms, bound_by, n_bytes, n_ops = chained_bound(name, args)
     largs = library_args(name, args)
     return {
@@ -1167,9 +1196,9 @@ def paired_pass_ms(calls_a, calls_b) -> tuple[float, float]:
     return float(np.median(times[0])), float(np.median(times[1]))
 
 
-def search_phase(card: str) -> list[dict]:
+def search_phase(card: str):
     """The fused and chained search paths, checked and measured; returns
-    their kernel lines."""
+    their kernel lines, the corpus and its engine on the card."""
     import torch
 
     from repro_torch.core import KeywordSearchEngine, PlanCache
@@ -1485,7 +1514,309 @@ def search_phase(card: str) -> list[dict]:
         "rounds": len(round_recs), "routes": routes,
         "device_ops_ms": device_ops_ms, "route_threshold_passes": threshold_passes,
     }
-    return [fused_line, *chained_lines]
+    return [fused_line, *chained_lines], tree, engine
+
+
+# --------------------------------------------------------------------------- #
+# The sharded cluster: 4 shards of the same corpus on one card
+# --------------------------------------------------------------------------- #
+
+CLUSTER_SHARDS = 4  # the README's layout (partitioned indices behind one front door)
+# tests/test_cluster.py's cross-shard / root-only cases, beside the paper's nine
+CLUSTER_EXTRA = (
+    ("releases",), ("release",), ("uk", "japan"), ("electronic", "jazz", "reggae"),
+    ("img-3.jpg", "vinyl"), ("zzz-not-a-word",), ("vinyl",),
+)
+# backend -> transports that serve it; each run beside a mono QueryService
+CLUSTER_RUNS = (("fused", ("thread", "process")), ("chained", ("thread", "remote")))
+CLUSTER_KERNEL = {"fused": "fused_search", "chained": "searchsorted"}  # the drain's
+
+
+def cluster_queries() -> list[tuple[str, tuple, str]]:
+    from repro_torch.data import QUERIES
+
+    named = [(n, tuple(w)) for n, (_c, w) in QUERIES.items()]
+    named += [(" ".join(w), w) for w in CLUSTER_EXTRA]
+    return [(n, w, sem) for n, w in named for sem in SEMANTICS]
+
+
+def gpu_apps() -> list[str]:
+    """nvidia-smi's line (pid, MiB) for each process holding a CUDA context.
+    Inside a container it may report other pids and memory than the
+    processes' own (one line per process, each with the container's pid and
+    total): ``device_used_mib`` is the measure that counts."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()
+
+
+def device_used_mib() -> float:
+    """The card's used memory, every process's included (MiB), once it has
+    held still for half a second (a child's context is freed as it exits)."""
+    import torch
+
+    def used() -> float:
+        free, total = torch.cuda.mem_get_info()
+        return (total - free) / 2**20
+
+    prev, now = used(), None
+    for _ in range(20):
+        time.sleep(0.5)
+        now = used()
+        if now == prev:
+            break
+        prev = now
+    return now
+
+
+def open_cluster(path: str, transport: str, backend: str):
+    """A ClusterService over the artifact at ``path`` on the card, and the
+    shard servers it needs (the remote transport: one per shard, started
+    by ``launch_cluster_servers``)."""
+    from repro_torch.cluster import ClusterService
+    from repro_torch.cluster.workers.server import launch_cluster_servers
+
+    procs, endpoints = [], None
+    if transport == "remote":
+        procs, endpoints = launch_cluster_servers(path, backends=backend, device=DEVICE)
+    try:
+        svc = ClusterService.from_dir(path, transport=transport, backends=backend,
+                                      endpoints=endpoints, device=DEVICE)
+    except BaseException:
+        stop_servers(procs)
+        raise
+    return svc, procs
+
+
+def stop_servers(procs) -> None:
+    for p in procs:
+        p.terminate()
+    for p in procs:
+        try:
+            p.wait(10)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(10)
+
+
+def shard_counts(svc, kernel: str) -> list[tuple[int, int | None]]:
+    """Each shard's PlanCache runs so far and its process's launches of
+    ``kernel`` so far, from the shard's own stats.  A thread worker reports
+    no launches (None): its shards share this process's counter."""
+    out = []
+    for w in svc.workers:
+        data = w.stats().data
+        launched = data.get(f"kernel_launches_{kernel}")
+        out.append((int(data.get("plan_launches_total", 0)),
+                    None if launched is None else int(launched)))
+    return out
+
+
+def check_shard_counts(what: str, backend: str, runs: list, launched: list) -> None:
+    """Every shard ran its PlanCache and launched its kernel in the counted
+    burst.  A fused run is one fused_search launch; a chained run launches
+    searchsorted once if its queries have two keywords or more, so at most
+    once."""
+    if min(runs) <= 0 or min(launched) <= 0:
+        raise AssertionError(
+            f"{what}: a shard launched nothing: runs {runs}, launches {launched}")
+    if backend == "fused" and launched != runs:
+        raise AssertionError(f"{what}: fused_search launches {launched} != runs {runs}")
+    if backend == "chained" and any(k > r for k, r in zip(launched, runs)):
+        raise AssertionError(f"{what}: searchsorted launches {launched} > runs {runs}")
+
+
+def cluster_phase(card: str, tree, engine) -> dict:
+    """4 shards of the search phase's corpus on the card: every transport's
+    answers against ``scalar``, kernel launches in every shard, latency beside
+    a mono QueryService in turns, all queries at once, memory per process.
+    Returns, per kernel, the thread transport's counted launches and every
+    such call held against the plain version."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.cluster import build_cluster
+    from repro_torch.serve import QueryService
+
+    queries = cluster_queries()
+    heavy = {"Q1", "Q2", "Q3", "release", "vinyl"}  # thousands of ids each
+    warm = [(n, w, s) for n, w, s in queries
+            if n in ("Q4", "Q5", "Q6") or (w in CLUSTER_EXTRA and n not in heavy)]
+    path = tempfile.mkdtemp(prefix="chip-smoke-cluster-")
+    record = {"card": card, "shards": CLUSTER_SHARDS, "runs": []}
+    in_process = {}
+    try:
+        t0 = time.perf_counter()
+        manifest = build_cluster(tree, CLUSTER_SHARDS, path, device=DEVICE)
+        t_build = time.perf_counter() - t0
+        nodes = [s["node_end"] - s["node_start"] for s in manifest["shards"]]
+        docs = [s["doc_hi"] - s["doc_lo"] for s in manifest["shards"]]
+        print(f"cluster: {CLUSTER_SHARDS} shards of the {N_RELEASES}-release corpus "
+              f"({tree.num_nodes} nodes) on one card: documents {docs}, nodes {nodes}; "
+              f"host build + save {t_build:.2f} s")
+        record.update(build_s=t_build, nodes=nodes, docs=docs)
+        want = {(n, s): engine.query(list(w), semantics=s, backend="scalar")
+                for n, w, s in queries}
+        for backend, transports in CLUSTER_RUNS:
+            name = CLUSTER_KERNEL[backend]
+            kernel = module(name)
+            services, procs = {}, {}
+            try:
+                services["mono"] = QueryService(engine, backend=backend, device=DEVICE)
+                start_s = {}
+                for transport in transports:
+                    t0 = time.perf_counter()
+                    services[transport], procs[transport] = open_cluster(
+                        path, transport, backend)
+                    start_s[transport] = time.perf_counter() - t0
+                for svc in services.values():  # warm: a few light queries
+                    for _n, w, s in warm:
+                        svc.query(list(w), s)
+                # per-query latency, the services in turns (rotating order)
+                lat = {key: [] for key in services}
+                keys = list(services)
+                for i, (n, w, s) in enumerate(queries):
+                    for key in keys[i % len(keys):] + keys[:i % len(keys)]:
+                        t0 = time.perf_counter()
+                        ids = services[key].query(list(w), s)
+                        lat[key].append((time.perf_counter() - t0) * 1e3)
+                        if not np.array_equal(ids, want[(n, s)]):
+                            raise AssertionError(
+                                f"cluster {backend} {key}: {n} {s} gives {ids.size} ids, "
+                                f"scalar {want[(n, s)].size}")
+                mono = lat["mono"]
+                for transport in transports:
+                    svc = services[transport]
+                    # all queries at once: the counted run.  The thread
+                    # transport's kernel calls are recorded and held against
+                    # the plain version after it; a process or remote shard
+                    # counts its own launches, read before and after
+                    before = shard_counts(svc, name)
+                    torch.cuda.synchronize()
+                    for m in (CHAINED if backend == "chained" else (name,)):
+                        module(m).LAUNCHES = 0
+                    recorder = (CallRecorder() if backend == "chained" else Recorder())
+                    with recorder if transport == "thread" else nullcontext():
+                        recorder.label = f"cluster {transport}"
+                        t0 = time.perf_counter()
+                        futs = [svc.submit(list(w), s) for _n, w, s in queries]
+                        got = [f.result(timeout=600) for f in futs]
+                        wall = time.perf_counter() - t0
+                        torch.cuda.synchronize()
+                    launches = kernel.LAUNCHES
+                    after = shard_counts(svc, name)
+                    for (n, _w, s), ids in zip(queries, got):
+                        if not np.array_equal(ids, want[(n, s)]):
+                            raise AssertionError(
+                                f"cluster {backend} {transport} at once: {n} {s}")
+                    runs = [a[0] - b[0] for a, b in zip(after, before)]
+                    what = f"cluster {backend} {transport}"
+                    if transport == "thread":
+                        recorded = (recorder.calls[name] if backend == "chained"
+                                    else recorder.rounds)
+                        for m in (CHAINED if backend == "chained" else ()):
+                            if module(m).LAUNCHES != len(recorder.calls[m]):
+                                raise AssertionError(
+                                    f"{what}: {module(m).LAUNCHES} {m} launches but "
+                                    f"{len(recorder.calls[m])} calls recorded")
+                        if launches != len(recorded):
+                            raise AssertionError(
+                                f"{what}: {launches} {name} launches but "
+                                f"{len(recorded)} calls recorded")
+                        # the shards share this process's counter: their runs add up
+                        if min(runs) <= 0:
+                            raise AssertionError(f"{what}: a shard ran nothing: {runs}")
+                        check_shard_counts(what, backend, [sum(runs)], [launches])
+                        shard_kernel = None
+                        if backend == "fused":
+                            errs = [fused_vs_plain(b, sem)[0] for _l, b, sem in recorded]
+                        else:
+                            errs = [chained_vs_plain(name, args) for _l, args in recorded]
+                        in_process[name] = {
+                            "cluster_thread_launches": launches,
+                            "cluster_calls": len(recorded),
+                            "cluster_matches_plain": True,
+                            "cluster_max_abs_err": max(errs),
+                        }
+                        print(f"{what}: {name}==plain on all {len(recorded)} calls "
+                              f"of the counted run (max abs err {max(errs)})")
+                    else:
+                        if launches:
+                            raise AssertionError(
+                                f"{launches} in-process launches from a {transport} cluster")
+                        shard_kernel = [a[1] - b[1] for a, b in zip(after, before)]
+                        check_shard_counts(what, backend, runs, shard_kernel)
+                    stats = svc.stats().summary()
+                    if backend == "fused" and stats.get("fused_fallbacks"):
+                        raise AssertionError(f"{transport}: a fused launch was demoted")
+                    # memory: the card's used memory before and after this
+                    # transport's shard processes exit is what they held; the
+                    # thread transport's shards live in this process
+                    apps = gpu_apps()
+                    used = device_used_mib()
+                    mem = {"device_used": used, "nvidia_smi_apps": apps,
+                           "router_reserved": torch.cuda.memory_reserved() / 2**20}
+                    if transport != "thread":
+                        svc.close()
+                        stop_servers(procs[transport])
+                        mem["after_exit"] = device_used_mib()
+                        mem["shard_processes"] = used - mem["after_exit"]
+                        if mem["shard_processes"] <= 0:
+                            raise AssertionError(
+                                f"{transport} shard processes held no device memory")
+                    c = lat[transport]
+                    heavy_ix = [i for i, (n, _w, _s) in enumerate(queries) if n in heavy]
+                    run = {
+                        "backend": backend, "transport": transport,
+                        "start_s": start_s[transport],
+                        "p50_ms": float(np.percentile(c, 50)), "max_ms": max(c),
+                        "mono_p50_ms": float(np.percentile(mono, 50)), "mono_max_ms": max(mono),
+                        "heavy_ms": sum(c[i] for i in heavy_ix),
+                        "mono_heavy_ms": sum(mono[i] for i in heavy_ix),
+                        "at_once_wall_ms": wall * 1e3, "at_once_qps": len(queries) / wall,
+                        "in_process_launches": launches, "shard_plan_runs": runs,
+                        "shard_kernel_launches": shard_kernel,
+                        "memory_mib": mem, "latency_ms": c, "mono_latency_ms": mono,
+                    }
+                    record["runs"].append(run)
+                    print(
+                        f"cluster {backend} {transport}: started in {start_s[transport]:.2f} s; "
+                        f"{len(queries)} queries equal scalar; per-query ms p50 "
+                        f"{run['p50_ms']:.3f} max {run['max_ms']:.3f} (mono QueryService in "
+                        f"turns: p50 {run['mono_p50_ms']:.3f} max {run['mono_max_ms']:.3f}); "
+                        f"the heavy 10 {run['heavy_ms']:.1f} ms (mono "
+                        f"{run['mono_heavy_ms']:.1f}); all at once {run['at_once_wall_ms']:.1f} "
+                        f"ms, {run['at_once_qps']:.2f} queries/s; in that run, {name} "
+                        f"launches in this process {launches}, PlanCache runs per shard "
+                        f"{runs}"
+                        + ("" if shard_kernel is None else
+                           f", {name} launches per shard (its own count) {shard_kernel}"))
+                    print(
+                        f"cluster {backend} {transport} memory (MiB): the card's used "
+                        f"memory {used:.0f} with this backend's services up; this "
+                        f"process's allocator holds {mem['router_reserved']:.0f}"
+                        + ("" if transport == "thread" else
+                           f"; {mem['after_exit']:.0f} once the {CLUSTER_SHARDS} shard "
+                           f"processes exited: they held {mem['shard_processes']:.0f} ("
+                           f"{mem['shard_processes'] / CLUSTER_SHARDS:.0f} each)")
+                        + f"; nvidia-smi lists {len(apps)} compute apps "
+                        f"(pid, MiB): {'; '.join(apps)}")
+            finally:
+                for svc in services.values():
+                    svc.close()
+                for p in procs.values():
+                    stop_servers(p)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    OUT_DIR.mkdir(exist_ok=True)
+    with open(OUT_DIR / "chip_smoke_cluster.json", "w") as f:
+        json.dump(record, f, indent=1)
+    return in_process
 
 
 # --------------------------------------------------------------------------- #
@@ -1877,6 +2208,7 @@ def main() -> int:
         return 2
     from repro_torch.kernels import _build
 
+    t_start = time.perf_counter()
     card = card_line()
     print(card)
     kind = torch.cuda.get_device_name(0)
@@ -1898,7 +2230,19 @@ def main() -> int:
         print(f"build: {lib.relative_to(ROOT)} in {secs:.2f} s")
     print(f"build: all {len(modules)} kernels in {time.perf_counter() - t0:.2f} s")
 
-    lines = [*search_phase(card), lm_phase()]
+    search_lines, tree, engine = search_phase(card)
+    print(f"search phase done at {time.perf_counter() - t_start:.1f} s")
+    cluster = cluster_phase(card, tree, engine)
+    for line in search_lines:
+        if line["name"] in cluster:
+            line.update(cluster[line["name"]])
+            line["max_abs_err"] = max(line["max_abs_err"],
+                                      line["cluster_max_abs_err"])
+    print(f"cluster phase done at {time.perf_counter() - t_start:.1f} s")
+    del tree, engine
+    torch.cuda.empty_cache()
+    lines = [*search_lines, lm_phase()]
+    print(f"lm phase done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- result lines --------------------------------------------------- #
     print(json.dumps({"kernels": lines}))
