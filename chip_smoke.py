@@ -63,7 +63,24 @@ Phases (any failure exits non-zero, and no result line is printed):
      shard's PlanCache launches are > 0, and the shard processes' device
      memory is read as the card's used memory before and after they exit
      (nvidia-smi's compute apps printed beside);
-  9. first, one decode-attention call at the decode_32k cell's shape (B
+  9. the HTTP gateway and the rebalancer over phase 8's cluster: (a) an
+     in-process ``Gateway`` over the thread transport with
+     ``backends="fused"``: the 32 queries POSTed on localhost, each beside
+     ``svc.query`` on the same service, in turns (p50, max; its
+     fused_search calls recorded and held against the plain version), a
+     second pass all ``cached``, and every debug route; (b) under traffic
+     (a client POSTing the light queries through a second gateway whose
+     1-entry cache always misses) ``plan_rebalance`` on the live load report
+     with shard 0 hot proposes a split and ``repartition_publish`` applies it
+     (4 -> 5 shards; publish and converge times; 0 client errors; the 32
+     uncached afterwards); (c) a gateway over 4 shard servers with
+     ``backends="chained"``, shard 0 moved to a new server by
+     ``move_shard`` (cached entries stay valid; the new server's own
+     searchsorted launches > 0); (d) a gateway child (``launch_gateway``,
+     process transport, fused; each shard process's own fused_search
+     launches > 0, read from its ``/debug/heat``).  Every answer equals
+     ``scalar``;
+  10. first, one decode-attention call at the decode_32k cell's shape (B
      128, T 32,768) against its plain version, timed by CUDA events, by a
      profiled pass of 10 and beside ``scaled_dot_product_attention``; then
      LM serving: SmolLM-135M at its published widths in bf16 with seeded
@@ -79,22 +96,25 @@ Phases (any failure exits non-zero, and no result line is printed):
      ``scaled_dot_product_attention`` (CUDA events and profiler device
      time) and the host breakdown of one call; last, one profiled serving
      run of 8 decode steps (device busy and idle share);
-  10. a ``{"kernels": [...]}`` line with all five kernels, the nvidia-smi
+  11. a ``{"kernels": [...]}`` line with all five kernels, the nvidia-smi
      line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Profiler device times are reported only from a pass in which the profiler
 recorded every launch the pass made (``expected_launches``), else as not
 measured.  Per-call details go to ``OUT_DIR``: ``chip_smoke_rounds.json``
-(search), ``chip_smoke_cluster.json`` (cluster) and ``chip_smoke_lm.json``
-(LM).
+(search), ``chip_smoke_cluster.json`` (cluster), ``chip_smoke_gateway.json``
+(gateway) and ``chip_smoke_lm.json`` (LM).
 """
 from __future__ import annotations
 
 import importlib
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
@@ -1529,7 +1549,7 @@ CLUSTER_EXTRA = (
 )
 # backend -> transports that serve it; each run beside a mono QueryService
 CLUSTER_RUNS = (("fused", ("thread", "process")), ("chained", ("thread", "remote")))
-CLUSTER_KERNEL = {"fused": "fused_search", "chained": "searchsorted"}  # the drain's
+CLUSTER_HEAVY = {"Q1", "Q2", "Q3", "release", "vinyl"}  # thousands of ids each
 
 
 def cluster_queries() -> list[tuple[str, tuple, str]]:
@@ -1629,194 +1649,614 @@ def check_shard_counts(what: str, backend: str, runs: list, launched: list) -> N
         raise AssertionError(f"{what}: searchsorted launches {launched} > runs {runs}")
 
 
-def cluster_phase(card: str, tree, engine) -> dict:
-    """4 shards of the search phase's corpus on the card: every transport's
-    answers against ``scalar``, kernel launches in every shard, latency beside
-    a mono QueryService in turns, all queries at once, memory per process.
-    Returns, per kernel, the thread transport's counted launches and every
-    such call held against the plain version."""
-    import shutil
-    import tempfile
+def light_queries(queries) -> list[tuple[str, tuple, str]]:
+    """The queries of ``cluster_queries`` that return few ids (Q4-Q6 and the
+    light cross-shard cases): the warm-up set and the gateway's traffic."""
+    return [(n, w, s) for n, w, s in queries
+            if n in ("Q4", "Q5", "Q6") or (w in CLUSTER_EXTRA and n not in CLUSTER_HEAVY)]
 
+
+def cluster_phase(card: str, tree, engine, path: str) -> dict:
+    """4 shards of the search phase's corpus on the card, built into ``path``:
+    every transport's answers against ``scalar``, kernel launches in every
+    shard, latency beside a mono QueryService in turns, all queries at once,
+    memory per process.  Returns, per kernel, the thread transport's counted
+    launches and every such call held against the plain version, and the
+    ``scalar`` answers of ``cluster_queries``."""
     import torch
 
     from repro_torch.cluster import build_cluster
     from repro_torch.serve import QueryService
+    from repro_torch.serve.service import DRAIN_KERNELS
 
     queries = cluster_queries()
-    heavy = {"Q1", "Q2", "Q3", "release", "vinyl"}  # thousands of ids each
-    warm = [(n, w, s) for n, w, s in queries
-            if n in ("Q4", "Q5", "Q6") or (w in CLUSTER_EXTRA and n not in heavy)]
-    path = tempfile.mkdtemp(prefix="chip-smoke-cluster-")
+    heavy = CLUSTER_HEAVY
+    warm = light_queries(queries)
     record = {"card": card, "shards": CLUSTER_SHARDS, "runs": []}
     in_process = {}
-    try:
-        t0 = time.perf_counter()
-        manifest = build_cluster(tree, CLUSTER_SHARDS, path, device=DEVICE)
-        t_build = time.perf_counter() - t0
-        nodes = [s["node_end"] - s["node_start"] for s in manifest["shards"]]
-        docs = [s["doc_hi"] - s["doc_lo"] for s in manifest["shards"]]
-        print(f"cluster: {CLUSTER_SHARDS} shards of the {N_RELEASES}-release corpus "
-              f"({tree.num_nodes} nodes) on one card: documents {docs}, nodes {nodes}; "
-              f"host build + save {t_build:.2f} s")
-        record.update(build_s=t_build, nodes=nodes, docs=docs)
-        want = {(n, s): engine.query(list(w), semantics=s, backend="scalar")
-                for n, w, s in queries}
-        for backend, transports in CLUSTER_RUNS:
-            name = CLUSTER_KERNEL[backend]
-            kernel = module(name)
-            services, procs = {}, {}
-            try:
-                services["mono"] = QueryService(engine, backend=backend, device=DEVICE)
-                start_s = {}
-                for transport in transports:
+    t0 = time.perf_counter()
+    manifest = build_cluster(tree, CLUSTER_SHARDS, path, device=DEVICE)
+    t_build = time.perf_counter() - t0
+    nodes = [s["node_end"] - s["node_start"] for s in manifest["shards"]]
+    docs = [s["doc_hi"] - s["doc_lo"] for s in manifest["shards"]]
+    print(f"cluster: {CLUSTER_SHARDS} shards of the {N_RELEASES}-release corpus "
+          f"({tree.num_nodes} nodes) on one card: documents {docs}, nodes {nodes}; "
+          f"host build + save {t_build:.2f} s")
+    record.update(build_s=t_build, nodes=nodes, docs=docs)
+    want = {(n, s): engine.query(list(w), semantics=s, backend="scalar")
+            for n, w, s in queries}
+    for backend, transports in CLUSTER_RUNS:
+        name = DRAIN_KERNELS[backend]
+        kernel = module(name)
+        services, procs = {}, {}
+        try:
+            services["mono"] = QueryService(engine, backend=backend, device=DEVICE)
+            start_s = {}
+            for transport in transports:
+                t0 = time.perf_counter()
+                services[transport], procs[transport] = open_cluster(
+                    path, transport, backend)
+                start_s[transport] = time.perf_counter() - t0
+            for svc in services.values():  # warm: a few light queries
+                for _n, w, s in warm:
+                    svc.query(list(w), s)
+            # per-query latency, the services in turns (rotating order)
+            lat = {key: [] for key in services}
+            keys = list(services)
+            for i, (n, w, s) in enumerate(queries):
+                for key in keys[i % len(keys):] + keys[:i % len(keys)]:
                     t0 = time.perf_counter()
-                    services[transport], procs[transport] = open_cluster(
-                        path, transport, backend)
-                    start_s[transport] = time.perf_counter() - t0
-                for svc in services.values():  # warm: a few light queries
-                    for _n, w, s in warm:
-                        svc.query(list(w), s)
-                # per-query latency, the services in turns (rotating order)
-                lat = {key: [] for key in services}
-                keys = list(services)
-                for i, (n, w, s) in enumerate(queries):
-                    for key in keys[i % len(keys):] + keys[:i % len(keys)]:
-                        t0 = time.perf_counter()
-                        ids = services[key].query(list(w), s)
-                        lat[key].append((time.perf_counter() - t0) * 1e3)
-                        if not np.array_equal(ids, want[(n, s)]):
-                            raise AssertionError(
-                                f"cluster {backend} {key}: {n} {s} gives {ids.size} ids, "
-                                f"scalar {want[(n, s)].size}")
-                mono = lat["mono"]
-                for transport in transports:
-                    svc = services[transport]
-                    # all queries at once: the counted run.  The thread
-                    # transport's kernel calls are recorded and held against
-                    # the plain version after it; a process or remote shard
-                    # counts its own launches, read before and after
-                    before = shard_counts(svc, name)
+                    ids = services[key].query(list(w), s)
+                    lat[key].append((time.perf_counter() - t0) * 1e3)
+                    if not np.array_equal(ids, want[(n, s)]):
+                        raise AssertionError(
+                            f"cluster {backend} {key}: {n} {s} gives {ids.size} ids, "
+                            f"scalar {want[(n, s)].size}")
+            mono = lat["mono"]
+            for transport in transports:
+                svc = services[transport]
+                # all queries at once: the counted run.  The thread
+                # transport's kernel calls are recorded and held against
+                # the plain version after it; a process or remote shard
+                # counts its own launches, read before and after
+                before = shard_counts(svc, name)
+                torch.cuda.synchronize()
+                for m in (CHAINED if backend == "chained" else (name,)):
+                    module(m).LAUNCHES = 0
+                recorder = (CallRecorder() if backend == "chained" else Recorder())
+                with recorder if transport == "thread" else nullcontext():
+                    recorder.label = f"cluster {transport}"
+                    t0 = time.perf_counter()
+                    futs = [svc.submit(list(w), s) for _n, w, s in queries]
+                    got = [f.result(timeout=600) for f in futs]
+                    wall = time.perf_counter() - t0
                     torch.cuda.synchronize()
-                    for m in (CHAINED if backend == "chained" else (name,)):
-                        module(m).LAUNCHES = 0
-                    recorder = (CallRecorder() if backend == "chained" else Recorder())
-                    with recorder if transport == "thread" else nullcontext():
-                        recorder.label = f"cluster {transport}"
-                        t0 = time.perf_counter()
-                        futs = [svc.submit(list(w), s) for _n, w, s in queries]
-                        got = [f.result(timeout=600) for f in futs]
-                        wall = time.perf_counter() - t0
-                        torch.cuda.synchronize()
-                    launches = kernel.LAUNCHES
-                    after = shard_counts(svc, name)
-                    for (n, _w, s), ids in zip(queries, got):
-                        if not np.array_equal(ids, want[(n, s)]):
+                launches = kernel.LAUNCHES
+                after = shard_counts(svc, name)
+                for (n, _w, s), ids in zip(queries, got):
+                    if not np.array_equal(ids, want[(n, s)]):
+                        raise AssertionError(
+                            f"cluster {backend} {transport} at once: {n} {s}")
+                runs = [a[0] - b[0] for a, b in zip(after, before)]
+                what = f"cluster {backend} {transport}"
+                if transport == "thread":
+                    recorded = (recorder.calls[name] if backend == "chained"
+                                else recorder.rounds)
+                    for m in (CHAINED if backend == "chained" else ()):
+                        if module(m).LAUNCHES != len(recorder.calls[m]):
                             raise AssertionError(
-                                f"cluster {backend} {transport} at once: {n} {s}")
-                    runs = [a[0] - b[0] for a, b in zip(after, before)]
-                    what = f"cluster {backend} {transport}"
-                    if transport == "thread":
-                        recorded = (recorder.calls[name] if backend == "chained"
-                                    else recorder.rounds)
-                        for m in (CHAINED if backend == "chained" else ()):
-                            if module(m).LAUNCHES != len(recorder.calls[m]):
-                                raise AssertionError(
-                                    f"{what}: {module(m).LAUNCHES} {m} launches but "
-                                    f"{len(recorder.calls[m])} calls recorded")
-                        if launches != len(recorded):
-                            raise AssertionError(
-                                f"{what}: {launches} {name} launches but "
-                                f"{len(recorded)} calls recorded")
-                        # the shards share this process's counter: their runs add up
-                        if min(runs) <= 0:
-                            raise AssertionError(f"{what}: a shard ran nothing: {runs}")
-                        check_shard_counts(what, backend, [sum(runs)], [launches])
-                        shard_kernel = None
-                        if backend == "fused":
-                            errs = [fused_vs_plain(b, sem)[0] for _l, b, sem in recorded]
-                        else:
-                            errs = [chained_vs_plain(name, args) for _l, args in recorded]
-                        in_process[name] = {
-                            "cluster_thread_launches": launches,
-                            "cluster_calls": len(recorded),
-                            "cluster_matches_plain": True,
-                            "cluster_max_abs_err": max(errs),
-                        }
-                        print(f"{what}: {name}==plain on all {len(recorded)} calls "
-                              f"of the counted run (max abs err {max(errs)})")
+                                f"{what}: {module(m).LAUNCHES} {m} launches but "
+                                f"{len(recorder.calls[m])} calls recorded")
+                    if launches != len(recorded):
+                        raise AssertionError(
+                            f"{what}: {launches} {name} launches but "
+                            f"{len(recorded)} calls recorded")
+                    # the shards share this process's counter: their runs add up
+                    if min(runs) <= 0:
+                        raise AssertionError(f"{what}: a shard ran nothing: {runs}")
+                    check_shard_counts(what, backend, [sum(runs)], [launches])
+                    shard_kernel = None
+                    if backend == "fused":
+                        errs = [fused_vs_plain(b, sem)[0] for _l, b, sem in recorded]
                     else:
-                        if launches:
-                            raise AssertionError(
-                                f"{launches} in-process launches from a {transport} cluster")
-                        shard_kernel = [a[1] - b[1] for a, b in zip(after, before)]
-                        check_shard_counts(what, backend, runs, shard_kernel)
-                    stats = svc.stats().summary()
-                    if backend == "fused" and stats.get("fused_fallbacks"):
-                        raise AssertionError(f"{transport}: a fused launch was demoted")
-                    # memory: the card's used memory before and after this
-                    # transport's shard processes exit is what they held; the
-                    # thread transport's shards live in this process
-                    apps = gpu_apps()
-                    used = device_used_mib()
-                    mem = {"device_used": used, "nvidia_smi_apps": apps,
-                           "router_reserved": torch.cuda.memory_reserved() / 2**20}
-                    if transport != "thread":
-                        svc.close()
-                        stop_servers(procs[transport])
-                        mem["after_exit"] = device_used_mib()
-                        mem["shard_processes"] = used - mem["after_exit"]
-                        if mem["shard_processes"] <= 0:
-                            raise AssertionError(
-                                f"{transport} shard processes held no device memory")
-                    c = lat[transport]
-                    heavy_ix = [i for i, (n, _w, _s) in enumerate(queries) if n in heavy]
-                    run = {
-                        "backend": backend, "transport": transport,
-                        "start_s": start_s[transport],
-                        "p50_ms": float(np.percentile(c, 50)), "max_ms": max(c),
-                        "mono_p50_ms": float(np.percentile(mono, 50)), "mono_max_ms": max(mono),
-                        "heavy_ms": sum(c[i] for i in heavy_ix),
-                        "mono_heavy_ms": sum(mono[i] for i in heavy_ix),
-                        "at_once_wall_ms": wall * 1e3, "at_once_qps": len(queries) / wall,
-                        "in_process_launches": launches, "shard_plan_runs": runs,
-                        "shard_kernel_launches": shard_kernel,
-                        "memory_mib": mem, "latency_ms": c, "mono_latency_ms": mono,
+                        errs = [chained_vs_plain(name, args) for _l, args in recorded]
+                    in_process[name] = {
+                        "cluster_thread_launches": launches,
+                        "cluster_calls": len(recorded),
+                        "cluster_matches_plain": True,
+                        "cluster_max_abs_err": max(errs),
                     }
-                    record["runs"].append(run)
-                    print(
-                        f"cluster {backend} {transport}: started in {start_s[transport]:.2f} s; "
-                        f"{len(queries)} queries equal scalar; per-query ms p50 "
-                        f"{run['p50_ms']:.3f} max {run['max_ms']:.3f} (mono QueryService in "
-                        f"turns: p50 {run['mono_p50_ms']:.3f} max {run['mono_max_ms']:.3f}); "
-                        f"the heavy 10 {run['heavy_ms']:.1f} ms (mono "
-                        f"{run['mono_heavy_ms']:.1f}); all at once {run['at_once_wall_ms']:.1f} "
-                        f"ms, {run['at_once_qps']:.2f} queries/s; in that run, {name} "
-                        f"launches in this process {launches}, PlanCache runs per shard "
-                        f"{runs}"
-                        + ("" if shard_kernel is None else
-                           f", {name} launches per shard (its own count) {shard_kernel}"))
-                    print(
-                        f"cluster {backend} {transport} memory (MiB): the card's used "
-                        f"memory {used:.0f} with this backend's services up; this "
-                        f"process's allocator holds {mem['router_reserved']:.0f}"
-                        + ("" if transport == "thread" else
-                           f"; {mem['after_exit']:.0f} once the {CLUSTER_SHARDS} shard "
-                           f"processes exited: they held {mem['shard_processes']:.0f} ("
-                           f"{mem['shard_processes'] / CLUSTER_SHARDS:.0f} each)")
-                        + f"; nvidia-smi lists {len(apps)} compute apps "
-                        f"(pid, MiB): {'; '.join(apps)}")
-            finally:
-                for svc in services.values():
+                    print(f"{what}: {name}==plain on all {len(recorded)} calls "
+                          f"of the counted run (max abs err {max(errs)})")
+                else:
+                    if launches:
+                        raise AssertionError(
+                            f"{launches} in-process launches from a {transport} cluster")
+                    shard_kernel = [a[1] - b[1] for a, b in zip(after, before)]
+                    check_shard_counts(what, backend, runs, shard_kernel)
+                stats = svc.stats().summary()
+                if backend == "fused" and stats.get("fused_fallbacks"):
+                    raise AssertionError(f"{transport}: a fused launch was demoted")
+                # memory: the card's used memory before and after this
+                # transport's shard processes exit is what they held; the
+                # thread transport's shards live in this process
+                apps = gpu_apps()
+                used = device_used_mib()
+                mem = {"device_used": used, "nvidia_smi_apps": apps,
+                       "router_reserved": torch.cuda.memory_reserved() / 2**20}
+                if transport != "thread":
                     svc.close()
-                for p in procs.values():
-                    stop_servers(p)
-    finally:
-        shutil.rmtree(path, ignore_errors=True)
+                    stop_servers(procs[transport])
+                    mem["after_exit"] = device_used_mib()
+                    mem["shard_processes"] = used - mem["after_exit"]
+                    if mem["shard_processes"] <= 0:
+                        raise AssertionError(
+                            f"{transport} shard processes held no device memory")
+                c = lat[transport]
+                heavy_ix = [i for i, (n, _w, _s) in enumerate(queries) if n in heavy]
+                run = {
+                    "backend": backend, "transport": transport,
+                    "start_s": start_s[transport],
+                    "p50_ms": float(np.percentile(c, 50)), "max_ms": max(c),
+                    "mono_p50_ms": float(np.percentile(mono, 50)), "mono_max_ms": max(mono),
+                    "heavy_ms": sum(c[i] for i in heavy_ix),
+                    "mono_heavy_ms": sum(mono[i] for i in heavy_ix),
+                    "at_once_wall_ms": wall * 1e3, "at_once_qps": len(queries) / wall,
+                    "in_process_launches": launches, "shard_plan_runs": runs,
+                    "shard_kernel_launches": shard_kernel,
+                    "memory_mib": mem, "latency_ms": c, "mono_latency_ms": mono,
+                }
+                record["runs"].append(run)
+                print(
+                    f"cluster {backend} {transport}: started in {start_s[transport]:.2f} s; "
+                    f"{len(queries)} queries equal scalar; per-query ms p50 "
+                    f"{run['p50_ms']:.3f} max {run['max_ms']:.3f} (mono QueryService in "
+                    f"turns: p50 {run['mono_p50_ms']:.3f} max {run['mono_max_ms']:.3f}); "
+                    f"the heavy 10 {run['heavy_ms']:.1f} ms (mono "
+                    f"{run['mono_heavy_ms']:.1f}); all at once {run['at_once_wall_ms']:.1f} "
+                    f"ms, {run['at_once_qps']:.2f} queries/s; in that run, {name} "
+                    f"launches in this process {launches}, PlanCache runs per shard "
+                    f"{runs}"
+                    + ("" if shard_kernel is None else
+                       f", {name} launches per shard (its own count) {shard_kernel}"))
+                print(
+                    f"cluster {backend} {transport} memory (MiB): the card's used "
+                    f"memory {used:.0f} with this backend's services up; this "
+                    f"process's allocator holds {mem['router_reserved']:.0f}"
+                    + ("" if transport == "thread" else
+                       f"; {mem['after_exit']:.0f} once the {CLUSTER_SHARDS} shard "
+                       f"processes exited: they held {mem['shard_processes']:.0f} ("
+                       f"{mem['shard_processes'] / CLUSTER_SHARDS:.0f} each)")
+                    + f"; nvidia-smi lists {len(apps)} compute apps "
+                    f"(pid, MiB): {'; '.join(apps)}")
+        finally:
+            for svc in services.values():
+                svc.close()
+            for p in procs.values():
+                stop_servers(p)
     OUT_DIR.mkdir(exist_ok=True)
     with open(OUT_DIR / "chip_smoke_cluster.json", "w") as f:
         json.dump(record, f, indent=1)
-    return in_process
+    return in_process, want
+
+
+# --------------------------------------------------------------------------- #
+# The HTTP gateway and the rebalancer over the cluster phase's 4 shards
+# --------------------------------------------------------------------------- #
+
+GATEWAY_ROUTES = ("/healthz", "/stats", "/metrics", "/debug/slow", "/debug/heat")
+
+
+class HttpClient:
+    """One keep-alive HTTP/1.1 connection to a gateway."""
+
+    def __init__(self, endpoint: str):
+        import http.client
+
+        host, port = endpoint.rsplit(":", 1)
+        self.conn = http.client.HTTPConnection(host, int(port), timeout=600)
+
+    def request(self, method: str, path: str, body=None) -> tuple[int, bytes]:
+        self.conn.request(method, path, body=None if body is None else json.dumps(body))
+        resp = self.conn.getresponse()
+        return resp.status, resp.read()
+
+    def query(self, words, semantics: str) -> dict:
+        """POST /query; the reply's JSON (raises on any status but 200)."""
+        status, raw = self.request(
+            "POST", "/query", {"keywords": list(words), "semantics": semantics})
+        if status != 200:
+            raise AssertionError(f"POST /query {list(words)} {semantics}: {status} {raw!r}")
+        return json.loads(raw)
+
+    def get(self, path: str) -> bytes:
+        status, raw = self.request("GET", path)
+        if status != 200:
+            raise AssertionError(f"GET {path}: {status} {raw[:200]!r}")
+        return raw
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def http_pass(client, queries, want, what: str, cached: bool | None) -> list[float]:
+    """Every query once over HTTP, in order: ids equal ``scalar`` and, unless
+    ``cached`` is None, the reply's ``cached`` flag is ``cached``.  Returns the
+    host-clock ms of each request."""
+    lat = []
+    for n, w, s in queries:
+        t0 = time.perf_counter()
+        out = http_check(client.query(w, s), want[(n, s)], f"{what}: {n} {s}")
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if cached is not None and out["cached"] is not cached:
+            raise AssertionError(f"{what}: {n} {s} cached={out['cached']}, want {cached}")
+    return lat
+
+
+def http_check(out: dict, want, what: str) -> dict:
+    if not (all(type(i) is int for i in out["ids"])
+            and np.array_equal(np.asarray(out["ids"], dtype=np.int64), want)):
+        raise AssertionError(f"{what}: {len(out['ids'])} ids over HTTP, scalar {want.size}")
+    return out
+
+
+def ms_summary(lat: list[float]) -> dict:
+    return {"p50_ms": float(np.percentile(lat, 50)), "max_ms": max(lat), "latency_ms": lat}
+
+
+def subproc_pids(marker: str) -> list[int]:
+    """Pids of this host's processes whose command line holds ``marker``."""
+    pids = []
+    for entry in Path("/proc").iterdir():
+        if entry.name.isdigit():
+            try:
+                cmd = (entry / "cmdline").read_bytes().replace(b"\0", b" ").decode()
+            except OSError:
+                continue
+            if marker in cmd:
+                pids.append(int(entry.name))
+    return pids
+
+
+def stop_gateway(proc, marker: str) -> None:
+    """Stop a gateway child as an operator would (SIGINT: it closes its
+    service and with it its shard processes) and check that none of them
+    outlives it; stragglers are killed and reported."""
+    import signal
+
+    proc.send_signal(signal.SIGINT)
+    try:
+        proc.wait(60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(10)
+    left = []
+    for _ in range(60):
+        left = subproc_pids(marker)
+        if not left:
+            return
+        time.sleep(0.5)
+    for pid in left:
+        os.kill(pid, signal.SIGKILL)
+    raise AssertionError(f"shard processes {left} outlived their gateway")
+
+
+def distinct_rounds(rounds) -> list[tuple[dict, str]]:
+    """One ``(batch, semantics)`` of each distinct recorded fused call: the
+    same semantics and the same input tensors, byte for byte."""
+    import hashlib
+
+    out = {}
+    for _label, batch, sem in rounds:
+        key = hashlib.sha256(sem.encode())
+        for name in sorted(batch):
+            t = batch[name].cpu()
+            key.update(f"{name}{tuple(t.shape)}{t.dtype}".encode())
+            key.update(t.numpy().tobytes())
+        out.setdefault(key.digest(), (batch, sem))
+    return list(out.values())
+
+
+def shard_kernel_launches(client, name: str) -> list[int]:
+    """Each shard's own launches of ``name``, from the gateway's load report."""
+    heat = json.loads(client.get("/debug/heat"))
+    return [int(row["kernel_launches"][name]) for row in heat["shards"]]
+
+
+def gateway_phase(card: str, tree, want: dict, path: str) -> dict:
+    """The cluster phase's 4 shards behind the HTTP gateway: fused in process
+    (latency beside ``svc.query`` in turns, the edge cache, every route), a
+    live split under traffic, chained over shard servers with a shard move,
+    and fused behind a gateway child.  Every answer equals ``scalar``.
+    Returns, per kernel, this phase's counted launches (and, for fused_search,
+    every recorded call held against the plain version)."""
+    import threading
+
+    import torch
+
+    from repro_torch.cluster import (
+        ClusterService, move_shard, plan_rebalance, repartition_publish,
+    )
+    from repro_torch.cluster.workers.server import launch_cluster_servers
+    from repro_torch.gateway import Gateway, launch_gateway
+
+    t_phase = time.perf_counter()
+    queries = cluster_queries()
+    light = light_queries(queries)
+    record = {"card": card, "shards": CLUSTER_SHARDS}
+    out = {}
+    fused = module("fused_search")
+    # (a) and (b) repartition their copy, (c) moves a shard of its own copy;
+    # (d) serves the cluster phase's layout as it was built
+    path_ab, path_c = path + "-ab", path + "-c"
+    shutil.copytree(path, path_ab)
+    shutil.copytree(path, path_c)
+    try:
+        # ---- (a) fused, in process ------------------------------------- #
+        svc = ClusterService.from_dir(path_ab, transport="thread", backends="fused",
+                                      device=DEVICE)
+        gw = traffic_gw = None
+        try:
+            gw = Gateway(svc).start()
+            client = HttpClient(gw.endpoint)
+            for _n, w, s in light:  # warm each shard's drain (not the edge cache)
+                svc.query(list(w), s)
+            torch.cuda.synchronize()
+            fused.LAUNCHES = 0
+            lat = {"http": [], "direct": []}
+            with Recorder() as rec:
+                for i, (n, w, s) in enumerate(queries):
+                    for how in (("http", "direct") if i % 2 == 0 else ("direct", "http")):
+                        rec.label = how
+                        t0 = time.perf_counter()
+                        if how == "http":
+                            res = client.query(w, s)
+                            ms = (time.perf_counter() - t0) * 1e3
+                            http_check(res, want[(n, s)], f"gateway fused {n} {s}")
+                            if res["cached"]:
+                                raise AssertionError(f"gateway fused: {n} {s} was cached")
+                        else:
+                            ids = svc.query(list(w), s)
+                            ms = (time.perf_counter() - t0) * 1e3
+                            if not np.array_equal(ids, want[(n, s)]):
+                                raise AssertionError(f"gateway fused svc.query: {n} {s}")
+                        lat[how].append(ms)
+            torch.cuda.synchronize()
+            launches = fused.LAUNCHES
+            http_calls = [r for r in rec.rounds if r[0] == "http"]
+            if launches != len(rec.rounds) or not http_calls:
+                raise AssertionError(
+                    f"gateway fused: {launches} fused_search launches, {len(rec.rounds)} "
+                    f"calls recorded, {len(http_calls)} of them for HTTP requests")
+            errs = [fused_vs_plain(b, sem)[0] for _l, b, sem in rec.rounds]
+            hits = http_pass(client, queries, want, "gateway fused, second pass", True)
+            routes = {}
+            for route in GATEWAY_ROUTES:
+                t0 = time.perf_counter()
+                raw = client.get(route)
+                routes[route] = {"ms": (time.perf_counter() - t0) * 1e3, "bytes": len(raw)}
+            heat = json.loads(client.get("/debug/heat"))
+            if "proposal" not in heat or "proposal_error" in heat:
+                raise AssertionError(f"/debug/heat without a proposal: {sorted(heat)}")
+            cache = gw.cache.snapshot()
+            # the HTTP hop: each request against the svc.query beside it
+            hop = float(np.median(np.subtract(lat["http"], lat["direct"])))
+            record["fused_in_process"] = {
+                "http": ms_summary(lat["http"]), "direct": ms_summary(lat["direct"]),
+                "http_minus_direct_median_ms": hop,
+                "cache_hits": ms_summary(hits), "cache": cache, "routes": routes,
+                "launches": launches, "http_calls": len(http_calls),
+                "max_abs_err": max(errs),
+            }
+            out["fused_search"] = {
+                "gateway_launches": launches, "gateway_http_calls": len(http_calls),
+                "gateway_max_abs_err": max(errs),
+            }
+            print(
+                f"gateway fused, in process: {len(queries)} queries over HTTP equal scalar; "
+                f"per-query ms p50 {np.percentile(lat['http'], 50):.3f} max "
+                f"{max(lat['http']):.3f} (svc.query in turns: p50 "
+                f"{np.percentile(lat['direct'], 50):.3f} max {max(lat['direct']):.3f}; "
+                f"HTTP minus svc.query, per query, median {hop:.3f}); second pass all cached, a hit p50 {np.percentile(hits, 50):.3f} ms max "
+                f"{max(hits):.3f}; fused_search launches {launches} "
+                f"({len(http_calls)} for HTTP requests), each == plain (max abs err "
+                f"{max(errs)}); " + ", ".join(
+                    f"{r} {v['ms']:.1f} ms" for r, v in routes.items()))
+
+            # ---- (b) a live split under traffic ------------------------- #
+            # the traffic goes through a second gateway whose 1-entry cache
+            # misses on every request, so every request reaches the shards
+            traffic_gw = Gateway(svc, cache_entries=1).start()
+            stop = threading.Event()
+            seen = {"requests": 0, "errors": [], "layouts": {}}
+
+            def traffic() -> None:
+                tc = HttpClient(traffic_gw.endpoint)
+                try:
+                    i = 0
+                    while not stop.is_set():
+                        n, w, s = light[i % len(light)]
+                        try:
+                            res = http_check(tc.query(w, s), want[(n, s)], f"traffic {n} {s}")
+                            k = len(res["generations"])
+                            seen["layouts"][k] = seen["layouts"].get(k, 0) + 1
+                        except Exception as e:  # counted; the phase fails below
+                            seen["errors"].append(f"{type(e).__name__}: {e}")
+                        seen["requests"] += 1
+                        i += 1
+                finally:
+                    tc.close()
+
+            timed = {}
+            apply_layout = svc.apply_layout
+
+            def timed_apply(*args, **kwargs):
+                t0 = time.perf_counter()
+                apply_layout(*args, **kwargs)
+                timed["converge_s"] = time.perf_counter() - t0
+
+            svc.apply_layout = timed_apply
+            # every fused_search call from here to the end of the pass after
+            # the split (the traffic on both layouts, the publish, the pass)
+            # is recorded and counted
+            torch.cuda.synchronize()
+            fused.LAUNCHES = 0
+            with Recorder() as split_rec:
+                split_rec.label = "traffic"
+                th = threading.Thread(target=traffic, name="gateway-traffic")
+                th.start()
+                try:
+                    while seen["requests"] < 2 * len(light) and th.is_alive():
+                        time.sleep(0.01)
+                    report = svc.load_report()
+                    # shard 0 hot, as tests/test_rebalance.py skews it; the
+                    # others' 10 keeps the planner from also merging a cold pair
+                    for row in report["shards"]:
+                        row["qps"] = 50.0 if row["shard"] == 0 else 10.0
+                    plan, actions = plan_rebalance(report)
+                    if [a.kind for a in actions] != ["split"] or plan.num_shards != 5:
+                        raise AssertionError(
+                            f"the planner proposed {[a.to_json() for a in actions]}")
+                    before = seen["requests"]
+                    t0 = time.perf_counter()
+                    manifest = repartition_publish(path_ab, tree, plan, service=svc,
+                                                   device=DEVICE)
+                    publish_s = time.perf_counter() - t0
+                    during = seen["requests"] - before
+                    while seen["layouts"].get(5, 0) < len(light) and th.is_alive():
+                        time.sleep(0.01)
+                finally:
+                    stop.set()
+                    th.join(120)
+                if th.is_alive() or seen["errors"] or not seen["layouts"].get(5):
+                    raise AssertionError(
+                        f"traffic across the split: alive {th.is_alive()}, errors "
+                        f"{seen['errors'][:5]}, answers per shard count {seen['layouts']}")
+                health = json.loads(client.get("/healthz"))
+                if (health["layout_epoch"], health["shards"]) != (1, 5):
+                    raise AssertionError(f"/healthz after the split: {health}")
+                split_rec.label = "after"
+                after = http_pass(client, queries, want, "gateway after the split", False)
+            torch.cuda.synchronize()
+            split_launches = fused.LAUNCHES
+            n_after = sum(r[0] == "after" for r in split_rec.rounds)
+            if split_launches != len(split_rec.rounds) or not n_after:
+                raise AssertionError(
+                    f"gateway split: {split_launches} fused_search launches, "
+                    f"{len(split_rec.rounds)} calls recorded, {n_after} of them after it")
+            # identical inputs give identical outputs: one replay of each
+            # distinct call holds every call against the plain version
+            distinct = distinct_rounds(split_rec.rounds)
+            split_errs = [fused_vs_plain(b, sem)[0] for b, sem in distinct]
+            del split_rec
+            docs = [s["doc_hi"] - s["doc_lo"] for s in manifest["shards"]]
+            record["split"] = {
+                "actions": [a.to_json() for a in actions], "docs": docs,
+                "publish_s": publish_s, "converge_s": timed["converge_s"],
+                "traffic_requests": seen["requests"], "traffic_during_publish": during,
+                "traffic_answers_per_shard_count": seen["layouts"],
+                "after": ms_summary(after), "launches": split_launches,
+                "launches_after": n_after, "distinct_calls": len(distinct),
+                "max_abs_err": max(split_errs),
+            }
+            out["fused_search"].update(
+                gateway_split_launches=split_launches,
+                gateway_split_max_abs_err=max(split_errs))
+            print(
+                f"gateway split under traffic: 4 -> 5 shards (documents {docs}) in "
+                f"{publish_s:.2f} s, of it converging the live service "
+                f"{timed['converge_s']:.3f} s; {seen['requests']} traffic requests "
+                f"({during} while the publish ran, answers by shard count "
+                f"{seen['layouts']}), 0 errors; /healthz epoch 1, 5 shards; the "
+                f"{len(queries)} queries after it all uncached and equal scalar (p50 "
+                f"{np.percentile(after, 50):.3f} ms, max {max(after):.3f}); fused_search "
+                f"launches from the traffic's start to the pass's end {split_launches} "
+                f"({n_after} in the pass), each of the {len(distinct)} distinct calls == "
+                f"plain (max abs err {max(split_errs)})")
+            client.close()
+        finally:
+            for g in (gw, traffic_gw):
+                if g is not None:
+                    g.close()
+            svc.close()
+
+        # ---- (c) chained over shard servers, with a move ---------------- #
+        procs, endpoints = launch_cluster_servers(path_c, backends="chained",
+                                                  device=DEVICE)
+        moved = None
+        try:
+            svc = ClusterService.from_dir(path_c, transport="remote", backends="chained",
+                                          endpoints=endpoints, device=DEVICE)
+            with Gateway(svc, own_service=True).start() as gw:
+                client = HttpClient(gw.endpoint)
+                first = http_pass(client, queries, want, "gateway chained remote", False)
+                t0 = time.perf_counter()
+                moved, endpoint, _m = move_shard(path_c, 0, service=svc, backend="chained",
+                                                 device=DEVICE)
+                move_s = time.perf_counter() - t0
+                hits = http_pass(client, queries, want, "gateway chained after the move",
+                                 True)
+                gw.cache.clear()
+                before = svc.workers[0].stats().data["kernel_launches_searchsorted"]
+                again = http_pass(client, queries, want, "gateway chained, moved shard",
+                                  False)
+                moved_launches = (svc.workers[0].stats().data["kernel_launches_searchsorted"]
+                                  - before)
+                if svc.pool.locality[0] != "remote" or moved_launches <= 0:
+                    raise AssertionError(
+                        f"the moved shard's server launched {moved_launches} searchsorted")
+                client.close()
+            record["chained_remote_move"] = {
+                "first": ms_summary(first), "cache_hits_after_move": ms_summary(hits),
+                "after_move": ms_summary(again), "move_s": move_s,
+                "moved_server_launches": moved_launches,
+            }
+            out["searchsorted"] = {"gateway_moved_server_launches": moved_launches}
+            print(
+                f"gateway chained over {CLUSTER_SHARDS} shard servers: {len(queries)} queries "
+                f"equal scalar (p50 {np.percentile(first, 50):.3f} ms, max {max(first):.3f}); "
+                f"shard 0 moved to a new server in {move_s:.2f} s; then all {len(queries)} "
+                f"cached; after a cache clear all equal scalar again (p50 "
+                f"{np.percentile(again, 50):.3f} ms) and the moved shard's server "
+                f"launched searchsorted {moved_launches} times (its own count)")
+        finally:
+            stop_servers(procs + ([moved] if moved is not None else []))
+
+        # ---- (d) fused behind a gateway child --------------------------- #
+        t0 = time.perf_counter()
+        proc, endpoint = launch_gateway(path, transport="process", backend="fused",
+                                        device=DEVICE)
+        start_s = time.perf_counter() - t0
+        try:
+            client = HttpClient(endpoint)
+            before = shard_kernel_launches(client, "fused_search")
+            lat = http_pass(client, queries, want, "gateway child, process", False)
+            per_shard = [a - b for a, b in
+                         zip(shard_kernel_launches(client, "fused_search"), before)]
+            if min(per_shard) <= 0:
+                raise AssertionError(f"a shard process launched no fused_search: {per_shard}")
+            client.close()
+        finally:
+            stop_gateway(proc, os.path.basename(path))
+        record["fused_child_process"] = {
+            "start_s": start_s, **ms_summary(lat), "shard_launches": per_shard,
+        }
+        out["fused_search"]["gateway_process_shard_launches"] = per_shard
+        print(
+            f"gateway child over {CLUSTER_SHARDS} shard processes: announced in "
+            f"{start_s:.2f} s; {len(queries)} queries equal scalar (p50 "
+            f"{np.percentile(lat, 50):.3f} ms, max {max(lat):.3f}); fused_search "
+            f"launches per shard process (its own count) {per_shard}; the child and "
+            f"its shard processes stopped")
+    finally:
+        for p in (path_ab, path_c):
+            shutil.rmtree(p, ignore_errors=True)
+    record["wall_s"] = time.perf_counter() - t_phase
+    OUT_DIR.mkdir(exist_ok=True)
+    with open(OUT_DIR / "chip_smoke_gateway.json", "w") as f:
+        json.dump(record, f, indent=1)
+    print(f"gateway phase: {record['wall_s']:.1f} s")
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -2232,13 +2672,21 @@ def main() -> int:
 
     search_lines, tree, engine = search_phase(card)
     print(f"search phase done at {time.perf_counter() - t_start:.1f} s")
-    cluster = cluster_phase(card, tree, engine)
+    path = tempfile.mkdtemp(prefix="chip-smoke-cluster-")
+    try:
+        cluster, want = cluster_phase(card, tree, engine, path)
+        print(f"cluster phase done at {time.perf_counter() - t_start:.1f} s")
+        gateway = gateway_phase(card, tree, want, path)
+        print(f"gateway phase done at {time.perf_counter() - t_start:.1f} s")
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
     for line in search_lines:
-        if line["name"] in cluster:
-            line.update(cluster[line["name"]])
-            line["max_abs_err"] = max(line["max_abs_err"],
-                                      line["cluster_max_abs_err"])
-    print(f"cluster phase done at {time.perf_counter() - t_start:.1f} s")
+        for phase in (cluster, gateway):
+            line.update(phase.get(line["name"], {}))
+        line["max_abs_err"] = max(line["max_abs_err"],
+                                  line.get("cluster_max_abs_err", 0),
+                                  line.get("gateway_max_abs_err", 0),
+                                  line.get("gateway_split_max_abs_err", 0))
     del tree, engine
     torch.cuda.empty_cache()
     lines = [*search_lines, lm_phase()]

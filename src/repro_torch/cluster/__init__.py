@@ -45,6 +45,13 @@ _EXPORTS = {
             "split_doc_ranges",
         )
     },
+    **{
+        n: (".rebalance", n)
+        for n in (
+            "Action", "PlacementPlan", "apply_actions", "doc_heat_weights",
+            "move_shard", "plan_rebalance", "repartition_publish",
+        )
+    },
     "ClusterService": (".router", "ClusterService"),
     **{
         n: (".workers", n)

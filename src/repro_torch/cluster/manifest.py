@@ -108,8 +108,8 @@ def write_layout_artifacts(
 ) -> tuple[list[str], str]:
     """Index + write every shard dir and the routing npz for one layout.
 
-    Shared by :func:`build_cluster` and the reference package's
-    ``repartition_publish`` (not ported yet): all files land
+    Shared by :func:`build_cluster` and
+    :func:`repro_torch.cluster.rebalance.repartition_publish`: all files land
     under fresh token names and the *cluster directory entry* is fsynced
     before returning — the manifest that will name these files must never
     commit ahead of their directory entries (a crash in between would leave

@@ -160,9 +160,9 @@ def heat_weighted_bounds(
     """Document boundaries balancing *observed query heat*, not node count.
 
     ``doc_heat[d]`` is a per-document load weight (e.g. expanded from the
-    per-shard ``doc_heat`` of :meth:`ClusterService.load_report
-    <repro_torch.cluster.router.ClusterService.load_report>`).  ``smoothing``
-    adds a uniform node-count-proportional floor so documents that saw zero traffic
+    load report's doc-range histogram, see
+    :func:`repro_torch.cluster.rebalance.doc_heat_weights`).  ``smoothing`` adds a
+    uniform node-count-proportional floor so documents that saw zero traffic
     still spread across shards instead of collapsing into one — with no heat
     at all this degrades exactly to the node-count balancer.
     """

@@ -1019,6 +1019,9 @@ class ClusterService:
         process, and remote transports (heat rides the stats wire header).
         QPS is a delta against the previous ``load_report`` call's counter
         snapshot; the first call uses the service's lifetime as the window.
+        Each row also carries the shard's own kernel launches when its worker
+        runs in a process of its own (the gateway's only per-shard view of
+        them, ``GET /debug/heat``).
         """
         with self._lock:
             workers = list(self.pool.workers)
@@ -1080,6 +1083,14 @@ class ClusterService:
                 "heat_queries": (
                     int(heat.queries) if heat is not None else 0
                 ),
+                # a shard process's own launches of each kernel (its
+                # ``kernel_launches_<kernel>`` stats); a thread worker shares
+                # this process's counters and reports none
+                "kernel_launches": {
+                    key[len("kernel_launches_"):]: int(val)
+                    for key, val in snap.data.items()
+                    if key.startswith("kernel_launches_")
+                },
             }
             shards.append(row)
         qps = [row["qps"] for row in shards]

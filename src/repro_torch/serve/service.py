@@ -31,6 +31,7 @@ thread's current CUDA stream.
 """
 from __future__ import annotations
 
+import importlib
 import os
 import threading
 import time
@@ -68,6 +69,19 @@ DEFAULT_SLOW_LOG_MS = float(os.environ.get("XKS_SLOW_LOG_MS", "25.0"))
 _BACKENDS = {
     "scalar": None, "torch": "torch", "chained": "chained", "fused": "fused",
 }
+# the kernel module (``repro_torch.kernels.<name>``) each drain launches
+DRAIN_KERNELS = {"fused": "fused_search", "chained": "searchsorted"}
+
+
+def load_kernels(backend: str) -> None:
+    """Build (when missing) and import the kernel a ``backend`` drain
+    launches, so that no drained window pays the build; the other drains
+    launch none.  Raises when the kernel cannot be built."""
+    name = DRAIN_KERNELS.get(backend)
+    if name is not None:
+        from repro_torch.kernels import _build
+
+        _build.load(importlib.import_module(f"repro_torch.kernels.{name}")._SOURCE)
 
 
 @dataclass
@@ -108,6 +122,8 @@ class QueryService:
             # importing the kernel ops registers the "chained" membership
             # backend with search_vec; without it the first drain would fail
             from repro_torch.kernels import ops  # noqa: F401
+        if self.device.type == "cuda":
+            load_kernels(backend)
         self.engine = engine
         self.backend = backend
         self.max_batch = int(max_batch)
