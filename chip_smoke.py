@@ -18,7 +18,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      and read just after; the calls per route (rows / tiles) and each
      batch's shape are printed;
   4. every answer equals the port's ``"scalar"`` backend (the paper's host
-     algorithms) and the ``"torch"`` backend on the same engine;
+     algorithms) and the ``"torch"`` backend on the same engine (warmed on
+     Q4-Q9: the DAG Q1-Q3 take seconds each on the host and need no warming);
   5. the chained path on the same engine: warmed on Q4-Q9, then one counted
      pass of the 36 engine queries with ``backend="chained"`` and a
      ``QueryService(backend="chained")`` answering the 18 DAG queries in one
@@ -34,7 +35,12 @@ Phases (any failure exits non-zero, and no result line is printed):
      take it too), with CUDA-event times of each batch and of one pass of
      them all, the plain version's times, the bound, the device time of
      each device op, and passes with the rows route's limit at 0, 2,048,
-     4,096 and 8,192 slots;
+     4,096 and 8,192 slots; then, beside each main-path batch's bound and
+     its device time (one profiled pass, cut per call), the roofline
+     model's fused and chained bytes and ``fused_bw_ms``
+     (``roofline/analysis.py::search_pipeline_bytes``, summed by route),
+     and a traced fused query whose ``kernel.fused_round`` spans must carry
+     the model and the route;
   7. each chained kernel against its plain version the same way, on seeded
      random shapes (searchsorted: windows staged whole and sampled at every
      16-byte phase, queries in random order, the service's widest call;
@@ -50,7 +56,21 @@ Phases (any failure exits non-zero, and no result line is printed):
      lookup, and the entry call beside a ``ctypes`` call of the same C
      function in the same library (timed in turns), beside the whole call
      (and ``torch.searchsorted``, in turns);
-  8. the sharded cluster on the same corpus: ``build_cluster`` into 4
+  8. the distributed search (``repro_torch.dist.search_shard``) on the
+     same corpus: the nine queries' tree-index lists, packed once and
+     handed to ranks spawned by ``torch.multiprocessing``: (a) one rank a
+     card over NCCL, mesh (1, cards); (b) 4 ranks sharing the card over
+     gloo, mesh (1, 4), each list cut into 4 segments; both with
+     ``backend="torch"`` and ``"chained"``, the nine queries x slca/elca,
+     each query's time beside the single-device ``run_query`` in turns
+     (p50, max); (c) the same ranks on mesh (2, 2), chained; (d)
+     ``make_distributed_search`` on (b)'s mesh, one call per k and
+     semantics.  Every answer equals ``"scalar"`` on every rank ((d) also
+     the single-device ``ca_search_batch``); each rank's searchsorted
+     launches are zeroed before and read after its counted pass and each
+     (d) call (> 0 under chained, == the calls recorded) and its recorded
+     calls held against plain;
+  9. the sharded cluster on the same corpus: ``build_cluster`` into 4
      shards on ``cuda``, then ``backends="fused"`` on the thread and process
      transports and ``"chained"`` on the thread and remote transports (4
      shard servers started by ``launch_cluster_servers``), each beside a
@@ -63,7 +83,7 @@ Phases (any failure exits non-zero, and no result line is printed):
      shard's PlanCache launches are > 0, and the shard processes' device
      memory is read as the card's used memory before and after they exit
      (nvidia-smi's compute apps printed beside);
-  9. the HTTP gateway and the rebalancer over phase 8's cluster: (a) an
+  10. the HTTP gateway and the rebalancer over phase 9's cluster: (a) an
      in-process ``Gateway`` over the thread transport with
      ``backends="fused"``: the 32 queries POSTed on localhost, each beside
      ``svc.query`` on the same service, in turns (p50, max; its
@@ -80,7 +100,7 @@ Phases (any failure exits non-zero, and no result line is printed):
      process transport, fused; each shard process's own fused_search
      launches > 0, read from its ``/debug/heat``).  Every answer equals
      ``scalar``;
-  10. first, one decode-attention call at the decode_32k cell's shape (B
+  11. first, one decode-attention call at the decode_32k cell's shape (B
      128, T 32,768) against its plain version, timed by CUDA events, by a
      profiled pass of 10 and beside ``scaled_dot_product_attention``; then
      LM serving: SmolLM-135M at its published widths in bf16 with seeded
@@ -96,14 +116,17 @@ Phases (any failure exits non-zero, and no result line is printed):
      ``scaled_dot_product_attention`` (CUDA events and profiler device
      time) and the host breakdown of one call; last, one profiled serving
      run of 8 decode steps (device busy and idle share);
-  11. a ``{"kernels": [...]}`` line with all five kernels, the nvidia-smi
-     line, and as the last line ``{"ok": true, "device": {...}}``.
+  12. a ``{"kernels": [...]}`` line with all five kernels (searchsorted's
+     with ``dist_launches`` per run and rank and ``dist_max_abs_err``,
+     folded into ``max_abs_err``), the nvidia-smi line, and as the last
+     line ``{"ok": true, "device": {...}}``.
 
 Profiler device times are reported only from a pass in which the profiler
 recorded every launch the pass made (``expected_launches``), else as not
 measured.  Per-call details go to ``OUT_DIR``: ``chip_smoke_rounds.json``
-(search), ``chip_smoke_cluster.json`` (cluster), ``chip_smoke_gateway.json``
-(gateway) and ``chip_smoke_lm.json`` (LM).
+(search), ``chip_smoke_dist.json`` (distributed search),
+``chip_smoke_cluster.json`` (cluster), ``chip_smoke_gateway.json`` (gateway)
+and ``chip_smoke_lm.json`` (LM).
 """
 from __future__ import annotations
 
@@ -126,11 +149,13 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.roofline.analysis import HW, search_pipeline_bytes  # noqa: E402
+
 DEVICE = "cuda"
 N_RELEASES = 20_000  # the paper's corpus is the 4.2 M-release discogs dump
 SEMANTICS = ("slca", "elca")
 INDEXES = ("dag", "tree")
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+HBM_BYTES_PER_S = HW["hbm_bw"]  # H100 SXM, NVIDIA data sheet (roofline/analysis.py)
 SCALAR_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
 TIMING_REPS = 15  # was 25; the cluster phase shares the run's time limit
 OUT_DIR = ROOT / "chiprun_out"
@@ -318,10 +343,10 @@ def cuda_ms(fn) -> float:
     return float(np.median(times))
 
 
-def profile_pass(fn) -> tuple[float, dict[str, float], dict[str, int]]:
+def profile_trace(fn) -> tuple[float, list[tuple[str, float, float]]]:
     """Run ``fn`` twice under torch.profiler, a warm-up step and then a
-    recorded step: (wall ms, {device op: ms}, {device op: events}) of the
-    recorded one.
+    recorded step: (wall ms, [(device op, start us, ms)] in start order) of
+    the recorded one.
 
     Device ops are the kernels and copies the profiler saw on the card (not
     the ``ProfilerStep`` span it also puts there, which covers the whole
@@ -344,12 +369,24 @@ def profile_pass(fn) -> tuple[float, dict[str, float], dict[str, int]]:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         prof.step()
+    ops = sorted(
+        ((evt.name, evt.time_range.start, evt.time_range.elapsed_us() / 1e3)
+         for evt in prof.events()
+         if evt.device_type == DeviceType.CUDA and not evt.name.startswith("ProfilerStep")),
+        key=lambda op: op[1],
+    )
+    return wall_ms, ops
+
+
+def profile_pass(fn) -> tuple[float, dict[str, float], dict[str, int]]:
+    """``profile_trace`` summed by device op: (wall ms, {device op: ms},
+    {device op: events}) of the recorded step."""
+    wall_ms, ops = profile_trace(fn)
     dev: dict[str, float] = {}
     events: dict[str, int] = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA and not evt.name.startswith("ProfilerStep"):
-            dev[evt.name] = dev.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
-            events[evt.name] = events.get(evt.name, 0) + 1
+    for name, _start, ms in ops:
+        dev[name] = dev.get(name, 0.0) + ms
+        events[name] = events.get(name, 0) + 1
     return wall_ms, dev, events
 
 
@@ -424,6 +461,29 @@ def device_pass_ms(fn, expect, name: str | None = None, tries: int = 3,
                                for p in KERNELS[name].device_ops})
             return total, counts
     return None, counts
+
+
+def device_ms_per_call(fn, per_call: list[dict[str, int]], name: str,
+                       tries: int = 3) -> list[float] | None:
+    """Device ms of each call of one profiled pass ``fn`` of kernel
+    ``name``, whose calls launch ``per_call`` (``expected_launches`` of each
+    call, in order): the pass's device ops of the kernel, in start order, cut
+    into the calls' launches; each call's ops must be the ones it makes.
+    None (not measured) when no pass of ``tries`` was recorded in full."""
+    ops = KERNELS[name].device_ops
+    for _ in range(tries):
+        _, trace = profile_trace(fn)
+        mine = [(op, ms) for op, _start, ms in trace if any(p in op for p in ops)]
+        out, at, whole = [], 0, len(mine) == sum(sum(c.values()) for c in per_call)
+        for launches in per_call if whole else ():
+            n = sum(launches.values())
+            got = {p: sum(p in op for op, _ms in mine[at:at + n]) for p in ops}
+            whole = whole and got == {p: launches.get(p, 0) for p in ops}
+            out.append(sum(ms for _op, ms in mine[at:at + n]))
+            at += n
+        if whole:
+            return out
+    return None
 
 
 def device_text(ms: float | None, counts: dict[str, int], expect) -> str:
@@ -519,7 +579,11 @@ def check_kernel(batch: dict, semantics: str) -> dict:
         "kept": kept, "route": fused_route(batch, semantics),
     }
     bound_ms, bound_by, n_bytes, n_ops = bound_of(batch, semantics)
+    model = search_pipeline_bytes(rows=rec["rows"], k=rec["k"], m0=rec["m0"],
+                                  mo=rec["mo"], semantics=semantics)
     rec.update(
+        model_fused_bytes=model.fused_bytes, model_fused_bw_ms=model.fused_bw_ms,
+        model_chained_bytes=model.chained_bytes, model_bytes_ratio=model.bytes_ratio,
         ms=cuda_ms(lambda: fused_search_batch(**batch, semantics=semantics)),
         plain_ms=cuda_ms(
             lambda: fused_search_batch_plain(**plain_args, semantics=semantics)
@@ -545,6 +609,25 @@ def check_routes(batch: dict, semantics: str) -> list[str]:
         if not (torch.equal(ids, want_ids) and torch.equal(mask, want_mask)):
             raise AssertionError(f"fused route {which} != plain ({semantics})")
     return checked
+
+
+def check_fused_span(engine) -> list[dict]:
+    """A traced fused query's ``kernel.fused_round`` spans carry the roofline
+    model of their batch (``search_pipeline_bytes``) and the kernel's route
+    (raises otherwise); returns their attributes."""
+    fs = module("fused_search")
+    phases: list = []
+    engine._query(["vinyl", "reissue"], "slca", "dag", "fused", None, phases=phases)
+    spans = [p["attrs"] for p in phases if p["name"] == "kernel.fused_round"]
+    if not spans:
+        raise AssertionError("the traced fused query recorded no kernel.fused_round span")
+    for a in spans:
+        want = search_pipeline_bytes(rows=a["rows"], k=a["k"], m0=a["m0"], mo=a["mo"],
+                                     semantics=a["semantics"]).attrs()
+        if ({key: a.get(key) for key in want} != want
+                or a.get("route") != fs.route(a["m0"], a["k"], a["semantics"])):
+            raise AssertionError(f"a kernel.fused_round span lacks the model: {a}")
+    return spans
 
 
 def fused_launches(which: str, semantics: str) -> dict[str, int]:
@@ -1218,7 +1301,8 @@ def paired_pass_ms(calls_a, calls_b) -> tuple[float, float]:
 
 def search_phase(card: str):
     """The fused and chained search paths, checked and measured; returns
-    their kernel lines, the corpus and its engine on the card."""
+    their kernel lines, the corpus, its engine on the card and the scalar
+    answers."""
     import torch
 
     from repro_torch.core import KeywordSearchEngine, PlanCache
@@ -1280,7 +1364,7 @@ def search_phase(card: str):
 
     # ---- answers against the scalar and torch backends ---------------- #
     scalar, scalar_lat = run_engine(engine, "scalar")
-    run_engine(engine, "torch")  # warm
+    run_engine(engine, "torch", names=("Q4", "Q5", "Q6", "Q7", "Q8", "Q9"))  # warm
     vec, torch_lat = run_engine(engine, "torch")
     assert_equal(fused, scalar, "fused engine")
     assert_equal(served, scalar, "fused service")
@@ -1416,6 +1500,41 @@ def search_phase(card: str):
     )
     threshold_passes = route_threshold_passes(rounds)
 
+    # ---- the roofline model (roofline/analysis.py) beside each round ----- #
+    round_dev = device_ms_per_call(lambda: [
+        fused_search.fused_search_batch(**b, semantics=s) for _l, b, s in rounds
+    ], [fused_launches(fused_route(b, s), s) for _l, b, s in rounds], "fused_search")
+    model_routes: dict[str, dict] = {}
+    for i, r in enumerate(round_recs):
+        r["device_ms"] = None if round_dev is None else round_dev[i]
+        print(
+            f"roofline model, round {r['query']} ({r['route']}, R={r['rows']} k={r['k']} "
+            f"m0={r['m0']} mo={r['mo']} {r['semantics']}): fused {r['model_fused_bytes']} B "
+            f"= {r['model_fused_bw_ms']:.6f} ms at {HBM_BYTES_PER_S:.3e} B/s, chained "
+            f"{r['model_chained_bytes']} B (ratio {r['model_bytes_ratio']:.3f}); bound "
+            f"{r['bound_ms']:.6f} ms ({r['bytes']} B, {r['bound_by']}); device "
+            + ("not measured" if round_dev is None else f"{round_dev[i]:.4f} ms")
+        )
+        t = model_routes.setdefault(r["route"], {
+            "rounds": 0, "fused_fewer_bytes": 0, "model_fused_bytes": 0,
+            "model_chained_bytes": 0, "model_fused_bw_ms": 0.0, "bound_bytes": 0,
+            "bound_ms": 0.0, "device_ms": None if round_dev is None else 0.0})
+        t["rounds"] += 1
+        t["fused_fewer_bytes"] += r["model_fused_bytes"] < r["model_chained_bytes"]
+        for key in ("model_fused_bytes", "model_chained_bytes", "model_fused_bw_ms",
+                    "bound_ms"):
+            t[key] += r[key]
+        t["bound_bytes"] += r["bytes"]
+        if round_dev is not None:
+            t["device_ms"] += round_dev[i]
+    print(f"roofline model over the {len(round_recs)} main-path rounds, by route: "
+          f"{json.dumps(model_routes)}")
+    spans = check_fused_span(engine)
+    print(f"traced fused query (vinyl reissue, slca, dag): {len(spans)} kernel.fused_round "
+          f"span(s) carry the model and the route: " + "; ".join(
+              f"{a['route']} fused {a['fused_bytes']} B chained {a['chained_bytes']} B "
+              f"ratio {a['bytes_ratio']:.3f}" for a in spans))
+
     # ---- the chained kernels vs plain --------------------------------- #
     chained_recs = {name: {"random": [], "calls": []} for name in CHAINED}
     random_cases = chained_random_cases()
@@ -1516,7 +1635,9 @@ def search_phase(card: str):
                    "per_query": per_query, "chained_breakdowns": breakdowns,
                    "fused_breakdowns": fused_breakdowns, "fused_batches": shapes,
                    "intersect_windows": windows,
-                   "intersect_random_windows": random_windows},
+                   "intersect_random_windows": random_windows,
+                   "roofline_model_by_route": model_routes,
+                   "fused_round_spans": spans},
                   f, indent=1)
 
     err = max(r["max_abs_err"] for r in random_recs + round_recs)
@@ -1534,7 +1655,253 @@ def search_phase(card: str):
         "rounds": len(round_recs), "routes": routes,
         "device_ops_ms": device_ops_ms, "route_threshold_passes": threshold_passes,
     }
-    return [fused_line, *chained_lines], tree, engine
+    return [fused_line, *chained_lines], tree, engine, scalar
+
+
+# --------------------------------------------------------------------------- #
+# The distributed search: every list cut into segments over a "model" group
+# --------------------------------------------------------------------------- #
+
+DIST_RANKS = 4  # ranks that share the card over gloo (NCCL refuses two on one card)
+DIST_TIMEOUT_S = 60  # a hung rank fails its collective, and the phase
+DIST_REPS = 4  # timed passes a (query, semantics): distributed and single-device in turns
+DIST_BACKENDS = ("torch", "chained")
+
+
+def dist_batch_arrays(lists: dict) -> dict:
+    """``make_distributed_search``'s inputs from the nine queries' lists: per
+    k, ``[Q, k, width]`` int32 ids (INT_PAD tails), parent ids and NDesc of
+    each query's lists, shortest first, width the bucket of the longest list
+    of the k's queries; and the queries' names."""
+    from repro_torch.kernels.shapes import INT_PAD, bucket
+
+    out = {}
+    for k in sorted({len(ls) for ls in lists.values()}):
+        names = [n for n, ls in lists.items() if len(ls) == k]
+        width = bucket(max(len(l) for n in names for l in lists[n]))
+        ids = np.full((len(names), k, width), INT_PAD, np.int32)
+        pid = np.full_like(ids, -1)
+        nd = np.zeros_like(ids)
+        for q, name in enumerate(names):
+            for j, l in enumerate(sorted(lists[name], key=len)):
+                n = len(l)
+                ids[q, j, :n], nd[q, j, :n] = l.ids, l.ndesc
+                pid[q, j, :n] = np.where(l.pidpos >= 0, l.ids[np.clip(l.pidpos, 0, n - 1)], -1)
+        out[k] = {"names": names, "ids": ids, "pid": pid, "ndesc": nd}
+    return out
+
+
+def dist_rank(rank: int, world: int, port: int, pg_backend: str, plan: dict,
+              out_dir: str) -> None:
+    """One rank of the distributed phase (started by ``torch.multiprocessing``
+    with the spawn method): joins the process group, runs ``plan``
+    (``dist_rank_runs``) and writes its result to ``out_dir``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group(pg_backend, init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        out = dist_rank_runs(plan)
+    finally:
+        dist.destroy_process_group()
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def dist_rank_runs(plan: dict) -> dict:
+    """A rank's runs: for each (label, model-axis size, backends, timed) of
+    ``plan["runs"]``, a mesh, a warm pass and a counted pass of the nine
+    queries x slca/elca through ``distributed_query`` on each backend (every
+    answer must equal scalar's; this rank's searchsorted launches zeroed
+    before and read after the counted pass, its calls recorded and each held
+    against plain), and when timed, ``DIST_REPS`` passes with each query
+    beside the single-device ``run_query`` on the same backend, in turns.
+    Then, when ``plan["batch"]`` is given, ``make_distributed_search`` on
+    the first run's mesh for each k, against the single-device
+    ``ca_search_batch`` and against scalar, its searchsorted launches
+    counted, its calls recorded and each held against plain."""
+    import torch
+
+    from repro_torch.core.search_vec import INT_PAD, ca_search_batch, run_query
+    from repro_torch.dist.search_shard import distributed_query, make_distributed_search
+    from repro_torch.launch.mesh import make_host_mesh, rank_device
+
+    dev = rank_device("cuda")
+    lists, want = plan["lists"], plan["want"]
+    queries = [(name, sem) for name in lists for sem in SEMANTICS]
+    out, meshes = {"device": str(dev)}, {}
+    for label, model, backends, timed in plan["runs"]:
+        mesh = meshes[label] = make_host_mesh(model)
+        run = out[label] = {"mesh": list(mesh.shape)}
+        for backend in backends:
+            def one(name, sem, backend=backend, mesh=mesh):
+                return distributed_query(lists[name], mesh, sem, backend=backend)
+
+            for name, sem in queries:  # warm
+                one(name, sem)
+            torch.cuda.synchronize()
+            module("searchsorted").LAUNCHES = 0
+            with CallRecorder() as calls:
+                got = {(name, sem): one(name, sem) for name, sem in queries}
+            launches = module("searchsorted").LAUNCHES
+            for (name, sem), ids in got.items():
+                if not np.array_equal(ids, want[f"{name} {sem}"]):
+                    raise AssertionError(
+                        f"{label} {backend} {name} {sem}: {ids.size} ids, scalar gives "
+                        f"{len(want[f'{name} {sem}'])} (rank device {dev})")
+            recorded = calls.calls["searchsorted"]
+            if launches != len(recorded):
+                raise AssertionError(f"{launches} searchsorted launches, {len(recorded)} calls")
+            if backend == "chained" and launches <= 0:
+                raise AssertionError(f"{label}: the chained distributed search launched "
+                                     "no searchsorted kernel")
+            rec = run[backend] = {
+                "answers": len(got), "launches": launches,
+                "max_abs_err": max((chained_vs_plain("searchsorted", a) for _l, a in recorded),
+                                   default=0),
+            }
+            if not timed:
+                continue
+            lat = {"dist": {q: [] for q in queries}, "single": {q: [] for q in queries}}
+            for rep in range(DIST_REPS):
+                for name, sem in queries:
+                    for which in (("dist", "single") if rep % 2 == 0 else ("single", "dist")):
+                        t0 = time.perf_counter()
+                        if which == "dist":
+                            one(name, sem)
+                        else:
+                            run_query(lists[name], sem, backend, dev)
+                        lat[which][(name, sem)].append((time.perf_counter() - t0) * 1e3)
+            for which, per in lat.items():
+                med = [float(np.median(ms)) for ms in per.values()]
+                rec[f"{which}_p50_ms"] = float(np.percentile(med, 50))
+                rec[f"{which}_max_ms"] = max(med)
+    if plan.get("batch"):
+        mesh = meshes[plan["runs"][0][0]]
+        m, r = mesh.size(1), mesh.get_local_rank("model")
+        batch = out["batch"] = {"calls": 0, "launches": 0, "max_abs_err": 0}
+        for k, arr in plan["batch"].items():
+            full = {n: torch.from_numpy(np.asarray(arr[n], np.int32)).to(dev)
+                    for n in ("ids", "pid", "ndesc")}
+            q, kk, width = full["ids"].shape
+            seg = [full[n].reshape(q, kk, m, width // m)[:, :, r].contiguous()
+                   for n in ("ids", "pid", "ndesc")]
+            n_valid = (full["ids"] < INT_PAD).sum(dim=-1, dtype=torch.int32)
+            for sem in SEMANTICS:
+                fn = make_distributed_search(mesh, int(k), sem, backend="chained")
+                module("searchsorted").LAUNCHES = 0
+                with CallRecorder() as calls:
+                    ids, mask = fn(*seg)
+                launches = module("searchsorted").LAUNCHES
+                recorded = calls.calls["searchsorted"]
+                if not 0 < launches == len(recorded):
+                    raise AssertionError(f"make_distributed_search k={k} {sem}: {launches} "
+                                         f"searchsorted launches, {len(recorded)} calls")
+                batch["launches"] += launches
+                batch["max_abs_err"] = max([batch["max_abs_err"], *(
+                    chained_vs_plain("searchsorted", a) for _l, a in recorded)])
+                want_ids, want_mask = ca_search_batch(
+                    full["ids"][:, 0], full["pid"][:, 0], full["ndesc"][:, 0],
+                    full["ids"][:, 1:].contiguous(), full["ndesc"][:, 1:].contiguous(),
+                    n_valid[:, 0], n_valid[:, 1:].contiguous(), semantics=sem,
+                    backend="chained")
+                if not (torch.equal(ids, want_ids) and torch.equal(mask, want_mask)):
+                    raise AssertionError(f"make_distributed_search k={k} {sem} != one device")
+                ids, mask = ids.cpu().numpy(), mask.cpu().numpy()
+                for row, name in enumerate(arr["names"]):
+                    if not np.array_equal(ids[row][mask[row]], want[f"{name} {sem}"]):
+                        raise AssertionError(f"make_distributed_search {name} {sem} != scalar")
+                batch["calls"] += 1
+    return out
+
+
+def run_dist_ranks(world: int, pg_backend: str, plan: dict) -> list[dict]:
+    """``plan`` on ``world`` ranks of one process group, spawned: the result
+    of every rank.  A rank that fails makes this raise (the others are
+    stopped); a hung collective fails after ``DIST_TIMEOUT_S``."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out_dir = tempfile.mkdtemp(prefix="chip-smoke-dist-")
+    try:
+        mp.spawn(dist_rank, args=(world, port, pg_backend, plan, out_dir), nprocs=world,
+                 join=True)
+        out = []
+        for rank in range(world):
+            with open(Path(out_dir) / f"rank{rank}.json") as f:
+                out.append(json.load(f))
+        return out
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def dist_phase(card: str, engine, scalar: dict) -> dict:
+    """The distributed search on the search phase's corpus (its nine queries'
+    tree-index lists, packed once here and handed to the ranks): (a) one rank
+    a card over NCCL, mesh (1, cards), both backends; (b) 4 ranks on one card
+    over gloo, mesh (1, 4), both backends; (c) the same ranks on mesh (2, 2),
+    chained; (d) ``make_distributed_search`` on (b)'s mesh, one call per k
+    and semantics.  Every answer equals scalar's on every rank; returns the
+    searchsorted line's ``dist_*`` fields."""
+    import torch
+
+    from repro_torch.data import QUERIES
+
+    t0 = time.perf_counter()
+    lists = {name: engine.base.idlists(engine.keyword_ids(words))
+             for name, (_cat, words) in QUERIES.items()}
+    want = {f"{name} {sem}": scalar[(name, sem, "tree")].tolist()
+            for name in lists for sem in SEMANTICS}
+    batch = dist_batch_arrays(lists)
+    cards = torch.cuda.device_count()
+    nccl = f"nccl_1x{cards}"
+    results = {
+        "nccl": run_dist_ranks(cards, "nccl", {
+            "runs": [(nccl, cards, DIST_BACKENDS, True)], "lists": lists, "want": want}),
+        "gloo": run_dist_ranks(DIST_RANKS, "gloo", {
+            "runs": [("gloo_1x4", DIST_RANKS, DIST_BACKENDS, True),
+                     ("gloo_2x2", 2, ("chained",), False)],
+            "lists": lists, "want": want, "batch": batch}),
+    }
+    launches, err = {}, 0
+    for group, ranks in results.items():
+        for label in [k for k in ranks[0] if k not in ("device", "batch")]:
+            runs = [res[label] for res in ranks]
+            launches[label] = [run["chained"]["launches"] for run in runs]
+            err = max([err, *(run[b]["max_abs_err"] for run in runs for b in DIST_BACKENDS
+                              if b in run)])
+            print(f"dist {label} ({group}, mesh {tuple(runs[0]['mesh'])}, "
+                  f"{len(ranks)} rank(s) on {sorted({res['device'] for res in ranks})}): "
+                  f"{runs[0]['chained']['answers']} answers per backend equal scalar on every "
+                  f"rank; searchsorted launches per rank under chained {launches[label]}, "
+                  f"each == plain")
+            for backend in DIST_BACKENDS:
+                r0 = runs[0].get(backend, {})
+                if "dist_p50_ms" in r0:
+                    print(f"dist {label} {backend}, per-query ms on rank 0 (median of "
+                          f"{DIST_REPS}, in turns): distributed p50 {r0['dist_p50_ms']:.3f} "
+                          f"max {r0['dist_max_ms']:.3f}; single-device run_query p50 "
+                          f"{r0['single_p50_ms']:.3f} max {r0['single_max_ms']:.3f}")
+    batch_out = [res["batch"] for res in results["gloo"]]
+    launches["gloo_batch"] = [b["launches"] for b in batch_out]
+    err = max([err, *(b["max_abs_err"] for b in batch_out)])
+    print(f"dist make_distributed_search on gloo_1x4: {batch_out[0]['calls']} calls "
+          f"(k in {sorted(batch)}, slca/elca) equal the single-device ca_search_batch and "
+          f"scalar on every rank; searchsorted launches per rank {launches['gloo_batch']}, "
+          f"each == plain")
+    secs = time.perf_counter() - t0
+    print(f"dist phase: {secs:.1f} s")
+    OUT_DIR.mkdir(exist_ok=True)
+    with open(OUT_DIR / "chip_smoke_dist.json", "w") as f:
+        json.dump({"card": card, "seconds": secs, "ranks": results}, f, indent=1)
+    return {"searchsorted": {"dist_launches": launches, "dist_max_abs_err": err}}
 
 
 # --------------------------------------------------------------------------- #
@@ -2670,8 +3037,10 @@ def main() -> int:
         print(f"build: {lib.relative_to(ROOT)} in {secs:.2f} s")
     print(f"build: all {len(modules)} kernels in {time.perf_counter() - t0:.2f} s")
 
-    search_lines, tree, engine = search_phase(card)
+    search_lines, tree, engine, scalar = search_phase(card)
     print(f"search phase done at {time.perf_counter() - t_start:.1f} s")
+    dist = dist_phase(card, engine, scalar)
+    print(f"dist phase done at {time.perf_counter() - t_start:.1f} s")
     path = tempfile.mkdtemp(prefix="chip-smoke-cluster-")
     try:
         cluster, want = cluster_phase(card, tree, engine, path)
@@ -2681,9 +3050,10 @@ def main() -> int:
     finally:
         shutil.rmtree(path, ignore_errors=True)
     for line in search_lines:
-        for phase in (cluster, gateway):
+        for phase in (dist, cluster, gateway):
             line.update(phase.get(line["name"], {}))
         line["max_abs_err"] = max(line["max_abs_err"],
+                                  line.get("dist_max_abs_err", 0),
                                   line.get("cluster_max_abs_err", 0),
                                   line.get("gateway_max_abs_err", 0),
                                   line.get("gateway_split_max_abs_err", 0))

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.api import resolve_device
 from repro_torch.kernels.fused_search import fused_search_batch
+from repro_torch.roofline.analysis import search_pipeline_bytes
 
 from .idlist import IDList
 from .search_vec import INT_PAD, bucket, ca_search_batch
@@ -235,7 +236,11 @@ class PlanCache:
         if phases is not None:
             attrs = {"backend": backend, "semantics": semantics, "rows": sig.rows}
             if fused:
-                attrs.update(k=sig.k, m0=sig.m0, mo=sig.mo)
+                # the whole pipeline is one call: the per-phase cost split
+                # rides on the span as the roofline model's byte counts
+                attrs.update(search_pipeline_bytes(
+                    rows=sig.rows, k=sig.k, m0=sig.m0, mo=sig.mo, semantics=semantics,
+                ).attrs())
             phases.append({
                 "name": "kernel.fused_round" if fused else "kernel.ca_search",
                 "t0_ms": w1, "dur_ms": (time.perf_counter() - p1) * 1e3,

@@ -57,44 +57,51 @@ register_membership_backend("torch", membership_torch)
 # --------------------------------------------------------------------------- #
 
 
-def ca_search_batch(
+def membership_stage(
+    ids0: torch.Tensor,  # [R, m0] int32, ascending, padded with INT_PAD
+    other_ids: torch.Tensor,  # [R, k-1, M] int32 padded ascending rows
+    other_ndesc: torch.Tensor,  # [R, k-1, M] int32
+    other_n: torch.Tensor,  # [R, k-1] int32 valid lengths
+    backend: str = "torch",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each L0 slot's membership in each other list and that list's NDesc at
+    the match: (found [R, k-1, m0] bool, nd [R, k-1, m0] int32, 0 where not
+    found).  Positions stay inside: they index ``other_ids`` (a segment of
+    the lists, in the distributed search) and serve only its NDesc gather."""
+    rows, m0 = ids0.shape
+    k1, mo = other_ids.shape[1], other_ids.shape[2]
+    member_fn = _MEMBERSHIP_BACKENDS[backend]
+    if k1 == 0:  # single-keyword query: no other list
+        return (torch.zeros((rows, 0, m0), dtype=torch.bool, device=ids0.device),
+                torch.zeros((rows, 0, m0), dtype=torch.int32, device=ids0.device))
+    found, pos = member_fn(
+        other_ids.reshape(rows * k1, mo),
+        other_n.reshape(rows * k1),
+        ids0[:, None, :].expand(rows, k1, m0).reshape(rows * k1, m0).contiguous(),
+    )
+    nd = torch.gather(other_ndesc.reshape(rows * k1, mo), 1, pos)
+    nd = torch.where(found, nd, torch.zeros_like(nd))
+    return found.reshape(rows, k1, m0), nd.reshape(rows, k1, m0)
+
+
+def keep_stage(
     ids0: torch.Tensor,  # [R, m0] int32, ascending, padded with INT_PAD
     pid0: torch.Tensor,  # [R, m0] int32 parent *ids* (-1 if none)
     ndesc0: torch.Tensor,  # [R, m0] int32
-    other_ids: torch.Tensor,  # [R, k-1, M] int32 padded ascending rows
-    other_ndesc: torch.Tensor,  # [R, k-1, M] int32
     n0: torch.Tensor,  # [R] int32 valid length of list 0
-    other_n: torch.Tensor,  # [R, k-1] int32 valid lengths
+    found: torch.Tensor,  # [R, k-1, m0] bool, from membership_stage
+    nd_others: torch.Tensor,  # [R, k-1, m0] int32, from membership_stage
     *,
     semantics: str = "slca",
-    backend: str = "torch",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Return (result_ids [R, m0] int32, result_mask [R, m0] bool).
-
-    Per row, results are compacted ascending; invalid tail slots hold INT_PAD.
-    """
+    """The CA set from the membership, compacted, then the SLCA, ELCA or CA
+    rule: (result_ids [R, m0] int32, result_mask [R, m0] bool)."""
     rows, m0 = ids0.shape
-    k1 = other_ids.shape[1]
     dev = ids0.device
-    member_fn = _MEMBERSHIP_BACKENDS[backend]
     idx = torch.arange(m0, dtype=torch.int32, device=dev)
-    valid0 = idx[None, :] < n0[:, None]
-
-    if k1:
-        mo = other_ids.shape[2]
-        found, pos = member_fn(
-            other_ids.reshape(rows * k1, mo),
-            other_n.reshape(rows * k1),
-            ids0[:, None, :].expand(rows, k1, m0).reshape(rows * k1, m0).contiguous(),
-        )
-        ca_mask = valid0 & found.reshape(rows, k1, m0).all(dim=1)
-        nd_others = torch.gather(
-            other_ndesc.reshape(rows * k1, mo), 1, pos
-        ).reshape(rows, k1, m0)
-        nd = torch.cat([ndesc0[:, None, :], nd_others], dim=1)  # [R, k, m0]
-    else:  # single-keyword query: every list entry is a CA
-        ca_mask = valid0
-        nd = ndesc0[:, None, :]
+    # every list entry is a CA of a single-keyword query (all() of no rows)
+    ca_mask = (idx[None, :] < n0[:, None]) & found.all(dim=1)
+    nd = torch.cat([ndesc0[:, None, :], nd_others], dim=1)  # [R, k, m0]
 
     # compact the CA set ascending via one sort (pads go to the tail)
     pad = torch.full_like(ids0, int(INT_PAD))
@@ -139,6 +146,29 @@ def ca_search_batch(
 
     res_ids = torch.where(res_mask, ca_sorted, pad)
     return res_ids, res_mask
+
+
+def ca_search_batch(
+    ids0: torch.Tensor,  # [R, m0] int32, ascending, padded with INT_PAD
+    pid0: torch.Tensor,  # [R, m0] int32 parent *ids* (-1 if none)
+    ndesc0: torch.Tensor,  # [R, m0] int32
+    other_ids: torch.Tensor,  # [R, k-1, M] int32 padded ascending rows
+    other_ndesc: torch.Tensor,  # [R, k-1, M] int32
+    n0: torch.Tensor,  # [R] int32 valid length of list 0
+    other_n: torch.Tensor,  # [R, k-1] int32 valid lengths
+    *,
+    semantics: str = "slca",
+    backend: str = "torch",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Return (result_ids [R, m0] int32, result_mask [R, m0] bool).
+
+    Per row, results are compacted ascending; invalid tail slots hold INT_PAD.
+    The two stages, :func:`membership_stage` then :func:`keep_stage`; the
+    distributed search runs them apart, with the membership's all-reduce
+    between.
+    """
+    found, nd = membership_stage(ids0, other_ids, other_ndesc, other_n, backend)
+    return keep_stage(ids0, pid0, ndesc0, n0, found, nd, semantics=semantics)
 
 
 def ca_search(

@@ -127,6 +127,12 @@ def _check(ids0, pid0, ndesc0, other_ids, other_ndesc, n0, other_n) -> int:
     return index
 
 
+def row_threads(m0: int) -> int:
+    """Threads of the rows route's block for rows of ``m0`` slots (whole
+    warps, at least two): ``csrc/fused_search.cu::row_threads``."""
+    return _ROW_THREADS if m0 >= _ROW_THREADS else max(64, -(-m0 // 32) * 32)
+
+
 def rows_fit(m0: int, k: int, semantics: str) -> bool:
     """Whether the rows route's shared memory for rows of ``m0`` slots and
     ``k`` lists fits in one block: what ``csrc/fused_search.cu::row_smem``
@@ -134,8 +140,7 @@ def rows_fit(m0: int, k: int, semantics: str) -> bool:
     ids, the count (SLCA) or the k-1 gathered NDesc and k sums (ELCA), and a
     CA byte per slot."""
     k1 = k - 1
-    threads = _ROW_THREADS if m0 >= _ROW_THREADS else max(64, -(-m0 // 32) * 32)
-    jobs = -(-m0 // threads) * k1
+    jobs = -(-m0 // row_threads(m0)) * k1
     ints = 2 * _STAGE_INTS + 2 * jobs + m0
     ints += {"slca": m0, "elca": (2 * k1 + 1) * m0, "ca": 0}[semantics]
     return 4 * ints + m0 <= _SMEM_MAX

@@ -6,7 +6,8 @@ a 2-shard ``ClusterService`` behind their own ``Gateway``: the port's with
 must give the same ids, generation vectors and ``cached`` flags, the same
 ``stats`` keys, the same error statuses and messages (the port's backend
 names aside), equal ``/healthz`` bodies, the same ``/stats`` structure and
-``/metrics`` families, and the same span names under ``/debug/slow``.  No
+``/metrics`` families, and the same span names and attribute keys under
+``/debug/slow`` (on the fused backends too, where the port adds ``route``).  No
 tolerance anywhere: ids are integers.
 
 The edge cache must drop the touched entries on a ``rolling_publish``
@@ -118,6 +119,28 @@ def _span_names(tree) -> list[str]:
         out.append(node["name"])
         out += _span_names(node.get("children", []))
     return sorted(out)
+
+
+def _span_keys(tree, extra=frozenset()) -> list[tuple]:
+    """(name, sorted attribute keys) of every span, ``extra`` keys left out."""
+    out = []
+    for node in tree:
+        keys = set(node.get("attrs", {})) - set(extra)
+        out.append((node["name"], tuple(sorted(keys))))
+        out += _span_keys(node.get("children", []), extra)
+    return sorted(out)
+
+
+def _debug_slow_trees(pair, keywords) -> list:
+    """The span tree of one traced request on each gateway of ``pair``."""
+    trees = []
+    for gw in pair:
+        _, out = _req(gw, "POST", "/query", {"keywords": keywords})
+        status, slow = _req(gw, "GET", "/debug/slow?n=10")
+        assert status == 200
+        (entry,) = [e for e in slow["slowest"] if e["trace_id"] == out["trace_id"]]
+        trees.append(entry["spans"])
+    return trees
 
 
 def _families(text: str) -> list[str]:
@@ -249,18 +272,30 @@ def test_http_introspection_equal_reference(pair):
 
 
 def test_http_debug_slow_span_names_equal_reference(pair):
-    """One traced request: the same span names in both trees (the port's
-    spans lack the reference's roofline byte attributes; names only)."""
-    port, ref = pair
-    trees = []
-    for gw in pair:
-        _, out = _req(gw, "POST", "/query", {"keywords": ["vinyl", "reissue"]})
-        status, slow = _req(gw, "GET", "/debug/slow?n=10")
-        assert status == 200
-        (entry,) = [e for e in slow["slowest"] if e["trace_id"] == out["trace_id"]]
-        trees.append(entry["spans"])
+    """One traced request: the same span names in both trees, and each span
+    with the same attribute keys."""
+    trees = _debug_slow_trees(pair, ["vinyl", "reissue"])
     assert _span_names(trees[0]) == _span_names(trees[1])
     assert "router.submit" in _span_names(trees[0])
+    assert _span_keys(trees[0]) == _span_keys(trees[1])
+
+
+def test_http_debug_slow_fused_span_attrs_equal_reference(corpus, ref_corpus):
+    """Both gateways on ``backends="fused"``: the ``kernel.fused_round``
+    spans carry the reference's roofline byte attributes (the port adds the
+    kernel's ``route``), and every other span the same keys."""
+    port = Gateway(ClusterService.from_tree(
+        corpus, 2, batch_window_ms=0.5, backends="fused", device="cpu"), own_service=True)
+    ref = RefGateway(RefClusterService.from_tree(
+        ref_corpus, 2, batch_window_ms=0.5, backends="fused"), own_service=True)
+    with port.start(), ref.start():
+        trees = _debug_slow_trees((port, ref), ["vinyl", "reissue"])
+    assert "kernel.fused_round" in _span_names(trees[0])
+    assert _span_names(trees[0]) == _span_names(trees[1])
+    assert _span_keys(trees[0], extra={"route"}) == _span_keys(trees[1])
+    fused = [keys for name, keys in _span_keys(trees[0]) if name == "kernel.fused_round"]
+    assert all({"route", "fused_bytes", "chained_bytes", "bytes_ratio"} <= set(k)
+               for k in fused)
 
 
 def test_http_debug_heat_carries_proposal(pair):
