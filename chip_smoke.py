@@ -12,7 +12,8 @@ Phases (any failure exits non-zero, and no result line is printed):
   3. the fused search path at a realistic size: the synthetic discogs corpus
      of 20,000 releases (about 1.03 M nodes), ``KeywordSearchEngine`` on
      ``cuda``, the paper's nine queries x slca/elca x the tree and DAG
-     indexes with ``backend="fused"`` through ``engine.query``, then a
+     indexes with ``backend="fused"`` through ``engine.query`` (warmed on
+     Q4-Q9 first), then a
      ``QueryService(backend="fused")`` answering the 18 DAG queries
      submitted together.  The kernel's launch count is zeroed just before
      and read just after; the calls per route (rows / tiles) and each
@@ -76,7 +77,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      shard servers started by ``launch_cluster_servers``), each beside a
      mono ``QueryService`` on the same backend: the nine paper queries and
      ``tests/test_cluster.py``'s seven cross-shard cases x slca/elca, one at
-     a time with the services in turns (p50, max), then all at once through
+     a time with the services in turns (p50, max; the mono service on the
+     light queries only: its host loop on the heavy ones is phase 3's), then
+     all at once through
      ``submit`` (wall, queries per second).  Every answer equals
      ``"scalar"``; the in-process fused_search / searchsorted counter is
      zeroed before and read after the thread transport's run (> 0), every
@@ -85,8 +88,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      (nvidia-smi's compute apps printed beside);
   10. the HTTP gateway and the rebalancer over phase 9's cluster: (a) an
      in-process ``Gateway`` over the thread transport with
-     ``backends="fused"``: the 32 queries POSTed on localhost, each beside
-     ``svc.query`` on the same service, in turns (p50, max; its
+     ``backends="fused"``: the 32 queries POSTed on localhost, each light one
+     beside ``svc.query`` on the same service, in turns (p50, max; its
      fused_search calls recorded and held against the plain version), a
      second pass all ``cached``, and every debug route; (b) under traffic
      (a client POSTing the light queries through a second gateway whose
@@ -116,7 +119,21 @@ Phases (any failure exits non-zero, and no result line is printed):
      ``scaled_dot_product_attention`` (CUDA events and profiler device
      time) and the host breakdown of one call; last, one profiled serving
      run of 8 decode steps (device busy and idle share);
-  12. a ``{"kernels": [...]}`` line with all five kernels (searchsorted's
+  12. LM training (``train_phase``): (a) SmolLM-135M at its published
+     widths in bf16 through ``repro_torch.launch.train``'s pieces (AdamW,
+     ``data/pipeline.py``, batch 8 x 1,024, 20 steps, a checkpoint every
+     10) under ``train.fault.run_supervised``, with a step that raises once
+     before step 15: the supervisor restores step 10 and replays 10-14, whose
+     losses must equal the first pass's (deterministic algorithms on); the
+     last loss must be below the first, and the first batch must score
+     lower after training than before; median step ms, tokens/s, 6·N·tokens
+     a step as a share of the bf16 peak, peak device memory and the
+     checkpoint save and restore seconds; (b) one step at SmolLM's widths
+     cut to 2 layers (float32, 2 x 128) on the card against the CPU from one
+     seeded state; (c) 4 gloo ranks sharing the card, mesh (4, 1), two steps
+     on DTensors against one device, then the checkpoint's elastic restore
+     onto mesh (1, 4).  No kernel of the port lies on this path;
+  13. a ``{"kernels": [...]}`` line with all five kernels (searchsorted's
      with ``dist_launches`` per run and rank and ``dist_max_abs_err``,
      folded into ``max_abs_err``), the nvidia-smi line, and as the last
      line ``{"ok": true, "device": {...}}``.
@@ -125,8 +142,8 @@ Profiler device times are reported only from a pass in which the profiler
 recorded every launch the pass made (``expected_launches``), else as not
 measured.  Per-call details go to ``OUT_DIR``: ``chip_smoke_rounds.json``
 (search), ``chip_smoke_dist.json`` (distributed search),
-``chip_smoke_cluster.json`` (cluster), ``chip_smoke_gateway.json`` (gateway)
-and ``chip_smoke_lm.json`` (LM).
+``chip_smoke_cluster.json`` (cluster), ``chip_smoke_gateway.json`` (gateway),
+``chip_smoke_lm.json`` (LM) and ``chip_smoke_train.json`` (training).
 """
 from __future__ import annotations
 
@@ -1330,7 +1347,9 @@ def search_phase(card: str):
     )
 
     # ---- main path: warm, then counted ------------------------------- #
-    run_engine(engine, "fused")  # warm: CUDA context, allocator, pinned pool
+    # warm (CUDA context, allocator, pinned pool) on Q4-Q9: the DAG Q1-Q3
+    # take seconds each in the host loop and need no warming
+    run_engine(engine, "fused", names=("Q4", "Q5", "Q6", "Q7", "Q8", "Q9"))
     torch.cuda.synchronize()
     fallbacks0 = engine.plan_cache.fused_fallbacks
     fused_search.LAUNCHES = 0
@@ -1424,8 +1443,10 @@ def search_phase(card: str):
               f"{q['fused_ms']:.1f} ms chained {q['chained_ms']:.1f} ms torch "
               f"{q['torch_ms']:.1f} ms scalar {q['scalar_ms']:.1f} ms")
 
-    # where a fused query's time goes: one profiled pass of the 36 queries
-    wall_ms, dev, _ = profile_pass(lambda: run_engine(engine, "fused"))
+    # where a fused query's time goes: one profiled pass of the queries
+    # other than the DAG Q1-Q3 (their host loops are timed above)
+    light = ("Q4", "Q5", "Q6", "Q7", "Q8", "Q9")
+    wall_ms, dev, _ = profile_pass(lambda: run_engine(engine, "fused", names=light))
     busy_ms = sum(dev.values())
     profile_rec = {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms if dev else None,
@@ -1434,7 +1455,8 @@ def search_phase(card: str):
     }
     if dev:
         print(
-            f"profiled fused pass (36 queries): wall {wall_ms:.1f} ms, device "
+            f"profiled fused pass ({len(query_matrix(light))} queries, Q4-Q9): wall "
+            f"{wall_ms:.1f} ms, device "
             f"busy {busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.4f}), "
             f"fused_search passes {profile_rec['kernel_ms']:.3f} ms"
         )
@@ -1692,10 +1714,11 @@ def dist_batch_arrays(lists: dict) -> dict:
 
 
 def dist_rank(rank: int, world: int, port: int, pg_backend: str, plan: dict,
-              out_dir: str) -> None:
-    """One rank of the distributed phase (started by ``torch.multiprocessing``
-    with the spawn method): joins the process group, runs ``plan``
-    (``dist_rank_runs``) and writes its result to ``out_dir``."""
+              out_dir: str, job=None) -> None:
+    """One rank of the distributed or the training phase (started by
+    ``torch.multiprocessing`` with the spawn method): joins the process
+    group, runs ``plan`` (``job``, by default ``dist_rank_runs``) and writes
+    its result to ``out_dir``."""
     import datetime
 
     import torch.distributed as dist
@@ -1704,7 +1727,7 @@ def dist_rank(rank: int, world: int, port: int, pg_backend: str, plan: dict,
                             world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
     try:
-        out = dist_rank_runs(plan)
+        out = (job or dist_rank_runs)(plan)
     finally:
         dist.destroy_process_group()
     with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
@@ -1818,10 +1841,11 @@ def dist_rank_runs(plan: dict) -> dict:
     return out
 
 
-def run_dist_ranks(world: int, pg_backend: str, plan: dict) -> list[dict]:
-    """``plan`` on ``world`` ranks of one process group, spawned: the result
-    of every rank.  A rank that fails makes this raise (the others are
-    stopped); a hung collective fails after ``DIST_TIMEOUT_S``."""
+def run_dist_ranks(world: int, pg_backend: str, plan: dict, job=None) -> list[dict]:
+    """``plan`` (through ``job``, by default ``dist_rank_runs``) on
+    ``world`` ranks of one process group, spawned: the result of every rank.
+    A rank that fails makes this raise (the others are stopped); a hung
+    collective fails after ``DIST_TIMEOUT_S``."""
     import socket
 
     import torch.multiprocessing as mp
@@ -1831,8 +1855,8 @@ def run_dist_ranks(world: int, pg_backend: str, plan: dict) -> list[dict]:
         port = s.getsockname()[1]
     out_dir = tempfile.mkdtemp(prefix="chip-smoke-dist-")
     try:
-        mp.spawn(dist_rank, args=(world, port, pg_backend, plan, out_dir), nprocs=world,
-                 join=True)
+        mp.spawn(dist_rank, args=(world, port, pg_backend, plan, out_dir, job),
+                 nprocs=world, join=True)
         out = []
         for rank in range(world):
             with open(Path(out_dir) / f"rank{rank}.json") as f:
@@ -2067,11 +2091,14 @@ def cluster_phase(card: str, tree, engine, path: str) -> dict:
             for svc in services.values():  # warm: a few light queries
                 for _n, w, s in warm:
                     svc.query(list(w), s)
-            # per-query latency, the services in turns (rotating order)
+            # per-query latency, the services in turns (rotating order); the
+            # mono service only on the light queries: its host loop on the
+            # heavy ones is the search phase's, timed and checked there
             lat = {key: [] for key in services}
             keys = list(services)
             for i, (n, w, s) in enumerate(queries):
-                for key in keys[i % len(keys):] + keys[:i % len(keys)]:
+                turn = keys[i % len(keys):] + keys[:i % len(keys)]
+                for key in (turn if n not in heavy else [k for k in turn if k != "mono"]):
                     t0 = time.perf_counter()
                     ids = services[key].query(list(w), s)
                     lat[key].append((time.perf_counter() - t0) * 1e3)
@@ -2161,13 +2188,15 @@ def cluster_phase(card: str, tree, engine, path: str) -> dict:
                             f"{transport} shard processes held no device memory")
                 c = lat[transport]
                 heavy_ix = [i for i, (n, _w, _s) in enumerate(queries) if n in heavy]
+                light_c = [t for i, t in enumerate(c) if i not in heavy_ix]
                 run = {
                     "backend": backend, "transport": transport,
                     "start_s": start_s[transport],
                     "p50_ms": float(np.percentile(c, 50)), "max_ms": max(c),
+                    "light_p50_ms": float(np.percentile(light_c, 50)),
+                    "light_max_ms": max(light_c),
                     "mono_p50_ms": float(np.percentile(mono, 50)), "mono_max_ms": max(mono),
                     "heavy_ms": sum(c[i] for i in heavy_ix),
-                    "mono_heavy_ms": sum(mono[i] for i in heavy_ix),
                     "at_once_wall_ms": wall * 1e3, "at_once_qps": len(queries) / wall,
                     "in_process_launches": launches, "shard_plan_runs": runs,
                     "shard_kernel_launches": shard_kernel,
@@ -2177,10 +2206,11 @@ def cluster_phase(card: str, tree, engine, path: str) -> dict:
                 print(
                     f"cluster {backend} {transport}: started in {start_s[transport]:.2f} s; "
                     f"{len(queries)} queries equal scalar; per-query ms p50 "
-                    f"{run['p50_ms']:.3f} max {run['max_ms']:.3f} (mono QueryService in "
-                    f"turns: p50 {run['mono_p50_ms']:.3f} max {run['mono_max_ms']:.3f}); "
-                    f"the heavy 10 {run['heavy_ms']:.1f} ms (mono "
-                    f"{run['mono_heavy_ms']:.1f}); all at once {run['at_once_wall_ms']:.1f} "
+                    f"{run['p50_ms']:.3f} max {run['max_ms']:.3f}; the "
+                    f"{len(light_c)} light ones p50 {run['light_p50_ms']:.3f} max "
+                    f"{run['light_max_ms']:.3f} (mono QueryService in turns, light only: "
+                    f"p50 {run['mono_p50_ms']:.3f} max {run['mono_max_ms']:.3f}); "
+                    f"the heavy 10 {run['heavy_ms']:.1f} ms; all at once {run['at_once_wall_ms']:.1f} "
                     f"ms, {run['at_once_qps']:.2f} queries/s; in that run, {name} "
                     f"launches in this process {launches}, PlanCache runs per shard "
                     f"{runs}"
@@ -2370,10 +2400,13 @@ def gateway_phase(card: str, tree, want: dict, path: str) -> dict:
                 svc.query(list(w), s)
             torch.cuda.synchronize()
             fused.LAUNCHES = 0
-            lat = {"http": [], "direct": []}
+            # HTTP on every query; svc.query beside it on the light ones (the
+            # heavy ones' host loops would only repeat what HTTP runs)
+            lat = {"http": [], "direct": [], "http_light": []}
             with Recorder() as rec:
                 for i, (n, w, s) in enumerate(queries):
-                    for how in (("http", "direct") if i % 2 == 0 else ("direct", "http")):
+                    hows = ("http", "direct") if i % 2 == 0 else ("direct", "http")
+                    for how in (hows if n not in CLUSTER_HEAVY else ("http",)):
                         rec.label = how
                         t0 = time.perf_counter()
                         if how == "http":
@@ -2388,6 +2421,8 @@ def gateway_phase(card: str, tree, want: dict, path: str) -> dict:
                             if not np.array_equal(ids, want[(n, s)]):
                                 raise AssertionError(f"gateway fused svc.query: {n} {s}")
                         lat[how].append(ms)
+                        if how == "http" and n not in CLUSTER_HEAVY:
+                            lat["http_light"].append(ms)
             torch.cuda.synchronize()
             launches = fused.LAUNCHES
             http_calls = [r for r in rec.rounds if r[0] == "http"]
@@ -2406,11 +2441,11 @@ def gateway_phase(card: str, tree, want: dict, path: str) -> dict:
             if "proposal" not in heat or "proposal_error" in heat:
                 raise AssertionError(f"/debug/heat without a proposal: {sorted(heat)}")
             cache = gw.cache.snapshot()
-            # the HTTP hop: each request against the svc.query beside it
-            hop = float(np.median(np.subtract(lat["http"], lat["direct"])))
+            # the HTTP hop: each light request against the svc.query beside it
+            hop = float(np.median(np.subtract(lat["http_light"], lat["direct"])))
             record["fused_in_process"] = {
-                "http": ms_summary(lat["http"]), "direct": ms_summary(lat["direct"]),
-                "http_minus_direct_median_ms": hop,
+                "http": ms_summary(lat["http"]), "http_light": ms_summary(lat["http_light"]),
+                "direct": ms_summary(lat["direct"]), "http_minus_direct_median_ms": hop,
                 "cache_hits": ms_summary(hits), "cache": cache, "routes": routes,
                 "launches": launches, "http_calls": len(http_calls),
                 "max_abs_err": max(errs),
@@ -2422,7 +2457,9 @@ def gateway_phase(card: str, tree, want: dict, path: str) -> dict:
             print(
                 f"gateway fused, in process: {len(queries)} queries over HTTP equal scalar; "
                 f"per-query ms p50 {np.percentile(lat['http'], 50):.3f} max "
-                f"{max(lat['http']):.3f} (svc.query in turns: p50 "
+                f"{max(lat['http']):.3f}; the {len(lat['http_light'])} light ones p50 "
+                f"{np.percentile(lat['http_light'], 50):.3f} max {max(lat['http_light']):.3f} "
+                f"(svc.query in turns on those: p50 "
                 f"{np.percentile(lat['direct'], 50):.3f} max {max(lat['direct']):.3f}; "
                 f"HTTP minus svc.query, per query, median {hop:.3f}); second pass all cached, a hit p50 {np.percentile(hits, 50):.3f} ms max "
                 f"{max(hits):.3f}; fused_search launches {launches} "
@@ -3006,7 +3043,344 @@ def decode_32k_call() -> dict:
     return r
 
 
+# --------------------------------------------------------------------------- #
+# LM training: the trainer at full width, the card against the CPU, the
+# sharded step on ranks sharing the card
+# --------------------------------------------------------------------------- #
+
+TRAIN_ARCH = "smollm-135m"  # at its published widths (configs/smollm_135m.py)
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 20, 10, 15
+# Adam's first steps move every weight by about the rate: at 1e-3 and above
+# the loss of each new batch rose over 20 steps on the card (PERF.md §6),
+# at 1e-4 it holds and the loss of a batch already seen falls
+TRAIN_LR, TRAIN_WARMUP = 1e-4, 2
+# 4 gloo ranks share the card (NCCL refuses two ranks on one card).  DTensor's
+# all-gather over gloo killed a rank with SIGSEGV on CUDA tensors on every
+# try, and mesh (2, 2)'s step needs it (PERF.md §6): so the step runs
+# data-parallel on (4, 1) (all-reduces only), and its checkpoint is
+# restored onto (1, 4), every leaf sharded over "model", each rank's pieces
+# checked on the rank
+TRAIN_RANKS, TRAIN_MESH, TRAIN_RESTORE_MESH = 4, (4, 1), (1, 4)
+# the widths of the card-vs-CPU and the sharded checks: SmolLM's, 2 layers,
+# float32, batch 2 x 128.  Adam divides each gradient by its own RMS, so on
+# an element whose gradient is near zero (a token row far from the batch)
+# the float32 noise of another summation order moves the step by a share of
+# the learning rate: at 1e-4 that stays well inside the limit
+TRAIN_SMALL = dict(batch=2, seq=128, lr=1e-4, warmup=0, steps=10, optimizer="adamw")
+TRAIN_TOL = 1e-4  # each metric, and each leaf's max |difference| over its max |value|
+TRAIN_SHARDED = dict(TRAIN_SMALL, batch=4)  # the 4 data ranks take a row each
+
+
+def train_small_cfg():
+    from repro_torch.configs import get_config
+
+    cfg = get_config(TRAIN_ARCH)
+    return cfg.reduced(n_layers=2, d_model=cfg.d_model, n_heads=cfg.n_heads,
+                       n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+                       vocab=cfg.vocab, dtype="float32")
+
+
+def state_err(got: dict, want: dict) -> float:
+    """The largest, over the leaves of two reference-layout trees of numpy
+    arrays (the same paths), of a leaf's max |got - want| over its max
+    |want| (0 for two leaves of zeros)."""
+    from repro_torch.tree import flatten_with_names
+
+    want_flat = dict(flatten_with_names(want))
+    worst = 0.0
+    for name, a in flatten_with_names(got):
+        b = np.asarray(want_flat[name], np.float64)
+        diff = float(np.abs(np.asarray(a, np.float64) - b).max(initial=0.0))
+        worst = max(worst, diff / float(np.abs(b).max(initial=0.0)) if diff else 0.0)
+    return worst
+
+
+def metric_err(got: dict, want: dict) -> float:
+    return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in want)
+
+
+def small_steps(device: str, steps: int, mesh=None, init=None, train=TRAIN_SMALL):
+    """``steps`` AdamW steps of the small config through the launcher's
+    pieces (``train``: their arguments) on ``device`` (or a mesh), from the
+    pieces' fresh state or from ``init`` (a reference-layout numpy state):
+    the metrics, the state and the state as numpy."""
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.convert import state_from_numpy, state_to_numpy
+
+    cfg = train_small_cfg()
+    run = launcher.pieces(cfg, **train, device=device, mesh=mesh)
+    step = run.make_step()
+    state = run.fresh_state() if init is None else state_from_numpy(init, cfg, device)
+    metrics = []
+    for s in range(steps):
+        state, m = step(state, run.next_batch(s))
+        metrics.append({k: launcher.value(v) for k, v in m.items()})
+    return metrics, state, state_to_numpy(state)
+
+
+def restore_err(restored, saved, mesh) -> float:
+    """The largest |difference| between each restored DTensor's local piece
+    and the same piece of the saved state, cut on this rank: the saved
+    state is replicated on (4, 1), so nothing is gathered (gloo's DTensor
+    all-gather of CUDA tensors crashes)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.dist.sharding import tensor_tree
+    from repro_torch.tree import flatten_with_names
+
+    saved_flat = dict(flatten_with_names(tensor_tree(saved)))
+    worst = 0.0
+    for name, r in flatten_with_names(tensor_tree(restored)):
+        full = saved_flat[name].full_tensor().detach()
+        want = distribute_tensor(full, mesh, r.placements, src_data_rank=None).to_local()
+        worst = max(worst, float((r.to_local().double() - want.double()).abs().max()))
+    return worst
+
+
+def train_rank_runs(plan: dict) -> dict:
+    """A rank of the sharded check: two steps on ``plan["mesh"]`` held
+    against the single-device state in ``plan["want"]``, a checkpoint, and
+    its elastic restore onto ``plan["restore_mesh"]`` held against the state
+    saved."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist import sharding as shd
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.tree import unflatten_names
+
+    world = dist.get_world_size()
+    dev_type = plan["device_type"]
+    if dev_type == "cuda":
+        torch.cuda.set_device(0)
+    mesh = DeviceMesh(dev_type, torch.arange(world).reshape(plan["mesh"]),
+                      mesh_dim_names=("data", "model"))
+    t0 = time.perf_counter()
+    metrics, state, got = small_steps(dev_type, 2, mesh, train=TRAIN_SHARDED)
+    t_steps = time.perf_counter() - t0
+    with np.load(plan["want"]) as f:
+        want = unflatten_names({k: f[k] for k in f.files})
+    placed = {n: [str(p) for p in t.placements] for n, t in state["params"].named_parameters()}
+    ckpt.save_checkpoint(plan["ckpt"], 2, state, extra={"next_step": 2})
+    mesh2 = DeviceMesh(dev_type, torch.arange(world).reshape(plan["restore_mesh"]),
+                       mesh_dim_names=("data", "model"))
+    restored, _ = ckpt.restore_checkpoint(plan["ckpt"], state,
+                                          shardings=shd.param_specs(state, mesh2), mesh=mesh2)
+    want_placed = shd.param_specs(restored, mesh2)["params"]
+    wrong = [n for n, p in restored["params"].named_parameters()
+             if tuple(p.placements) != want_placed[n]]
+    return {"metrics": metrics, "state_err": state_err(got, want),
+            "restore_err": restore_err(restored, state, mesh2), "misplaced": wrong,
+            "placed": placed, "steps_s": t_steps,
+            "restored_placed": {n: [str(p) for p in t.placements]
+                                for n, t in restored["params"].named_parameters()}}
+
+
+def train_phase(card: str) -> dict:
+    """SmolLM-135M training on the card (module docstring, phase 12)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import lm_loss
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.fault import run_supervised
+    from repro_torch.train.optimizer import pick_optimizer
+    from repro_torch.tree import flatten_with_names
+
+    record = {"card": card}
+    # ---- (a) the trainer at full width ------------------------------- #
+    cfg = get_config(TRAIN_ARCH)
+    n_params = cfg.param_count()
+    opt = pick_optimizer(cfg)
+    run = launcher.pieces(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0, lr=TRAIN_LR,
+                          warmup=TRAIN_WARMUP, steps=TRAIN_STEPS, optimizer=opt,
+                          device=DEVICE)
+    step_ms: dict[int, list[float]] = {}
+    losses: dict[int, list[float]] = {}
+    io_s = {"save": [], "restore": []}
+    left = {"failures": 1}
+    last = {}
+    seen = run.next_batch(0)  # the first batch, scored again after training
+
+    def seen_loss(state) -> float:
+        with torch.no_grad():
+            return float(lm_loss(state["params"], cfg, seen))
+
+    def make_step():
+        inner = run.make_step()
+
+        def step(state, batch):
+            s = int(state["step"])
+            if left["failures"] and s == TRAIN_FAIL_AT:
+                left["failures"] -= 1
+                raise RuntimeError(f"injected failure before step {s}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = inner(state, batch)
+            torch.cuda.synchronize()
+            step_ms.setdefault(s, []).append((time.perf_counter() - t0) * 1e3)
+            last["state"] = state
+            return state, metrics
+
+        return step
+
+    def timed(kind, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            io_s[kind].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip-smoke-train-")
+    saved = (ckpt.save_checkpoint, ckpt.restore_checkpoint)
+    ckpt.save_checkpoint = timed("save", saved[0])
+    ckpt.restore_checkpoint = timed("restore", saved[1])
+    torch.use_deterministic_algorithms(True)  # a replayed step must equal its first pass
+    seen_before = seen_loss(run.fresh_state())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        report = run_supervised(
+            total_steps=TRAIN_STEPS, make_step=make_step, init_state=run.fresh_state,
+            next_batch=run.next_batch, ckpt_dir=ckpt_dir, checkpoint_every=TRAIN_CKPT_EVERY,
+            on_metrics=lambda s, m: losses.setdefault(s, []).append(float(m["loss"])))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        state = last.pop("state")
+        seen_after = seen_loss(state)
+        # where a step's time goes: one more step, profiled
+        prof_step, prof_batch = run.make_step(), run.next_batch(TRAIN_STEPS)
+        prof_wall, prof_dev, _ = profile_pass(lambda: prof_step(state, prof_batch))
+        del state
+    finally:
+        ckpt.save_checkpoint, ckpt.restore_checkpoint = saved
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    replayed = sorted(s for s, v in losses.items() if len(v) > 1)
+    if (report.failures_recovered != 1 or report.restarts != [TRAIN_FAIL_AT]
+            or report.final_step != TRAIN_STEPS
+            or replayed != list(range(TRAIN_CKPT_EVERY, TRAIN_FAIL_AT))):
+        raise AssertionError(f"train: supervisor report {report}, replayed steps {replayed}")
+    replay_diff = max(abs(losses[s][0] - losses[s][1]) for s in replayed)
+    if replay_diff != 0.0:
+        raise AssertionError(f"train: replayed losses differ by up to {replay_diff} "
+                             f"(deterministic algorithms on): {losses}")
+    first, final = losses[0][0], losses[TRAIN_STEPS - 1][-1]
+    if not all(np.isfinite(v).all() for v in losses.values()) or not final < first:
+        raise AssertionError(f"train: the loss did not fall: {first} -> {final}")
+    if not seen_after < seen_before:
+        raise AssertionError(f"train: step 0's batch scores {seen_before} -> {seen_after}")
+    # step 0 carries the first call's setup; the rest (first pass and replay)
+    ms = [t for s, ts in step_ms.items() if s > 0 for t in ts]
+    med_ms = float(np.median(ms))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    share = 6.0 * n_params * tokens / (med_ms / 1e3) / HW["peak_flops"]
+    record["trainer"] = {
+        "arch": cfg.name, "params": n_params, "optimizer": opt, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "lr": TRAIN_LR, "warmup": TRAIN_WARMUP,
+        "median_step_ms": med_ms, "step_ms": {str(k): v for k, v in sorted(step_ms.items())},
+        "tokens_per_s": tokens / (med_ms / 1e3), "peak_flops_share": share,
+        "peak_memory_bytes": peak, "save_s": io_s["save"], "restore_s": io_s["restore"],
+        "losses": {str(k): v for k, v in sorted(losses.items())},
+        "first_batch_loss_before": seen_before, "first_batch_loss_after": seen_after,
+        "profiled_step": {"wall_ms": prof_wall, "device_busy_ms": sum(prof_dev.values()),
+                          "top_device_ops": sorted(prof_dev.items(), key=lambda kv: -kv[1])[:12]},
+        "restarts": report.restarts, "steps_run": report.steps_run, "wall_s": wall,
+        "deterministic": True,
+    }
+    print(
+        f"train (a): {cfg.name} at its published widths ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab "
+        f"{cfg.vocab}, {cfg.dtype}, {n_params} parameters), {opt}, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, {TRAIN_STEPS} steps (lr {TRAIN_LR}, warmup {TRAIN_WARMUP}) through "
+        f"launch/train.py's pieces and run_supervised, deterministic algorithms on: median "
+        f"step {med_ms:.2f} ms (device synchronised, steps 1-19 and the replay), "
+        f"{tokens / (med_ms / 1e3):.0f} tokens/s, 6*N*tokens/step = {100 * share:.2f}% of "
+        f"the bf16 peak ({HW['peak_flops'] / 1e12:.0f} TFLOP/s); peak device memory "
+        f"{peak / 2**30:.2f} GiB; checkpoint save s {[round(x, 2) for x in io_s['save']]}, "
+        f"restore s {[round(x, 2) for x in io_s['restore']]}; loss {first:.4f} -> "
+        f"{final:.4f} (step 0's batch scored again: {seen_before:.4f} -> "
+        f"{seen_after:.4f}); failure injected before step {TRAIN_FAIL_AT}, "
+        f"{report.failures_recovered} recovered from step {TRAIN_CKPT_EVERY}, steps "
+        f"{replayed[0]}-{replayed[-1]} replayed with equal losses; {card}")
+    busy = sum(prof_dev.values())
+    top = sorted(prof_dev.items(), key=lambda kv: -kv[1])[:6]
+    print(f"train (a) profiled step: wall {prof_wall:.1f} ms, device busy {busy:.1f} ms (idle "
+          f"share {1 - busy / prof_wall:.4f}); top device ops: "
+          + "; ".join(f"{op[:60]} {ms:.2f} ms" for op, ms in top) if prof_dev else
+          "train (a) profiled step: device time not measured (no device events)")
+
+    # ---- (b) one step on the card against the CPU --------------------- #
+    # one seeded state, made on the CPU and carried to both devices (the
+    # card's and the CPU's generators draw other numbers from one seed)
+    from repro_torch.launch.train import pieces
+    from repro_torch.models.convert import state_to_numpy
+
+    init = state_to_numpy(pieces(train_small_cfg(), **TRAIN_SMALL, device="cpu").fresh_state())
+    m_card, _s, card_state = small_steps(DEVICE, 1, init=init)
+    m_cpu, _s, cpu_state = small_steps("cpu", 1, init=init)
+    del _s, init
+    b_metric, b_state = metric_err(m_card[0], m_cpu[0]), state_err(card_state, cpu_state)
+    if b_metric > TRAIN_TOL or b_state > TRAIN_TOL:
+        raise AssertionError(f"train (b): card vs CPU metrics {b_metric}, state {b_state}")
+    record["card_vs_cpu"] = {"metrics_card": m_card, "metrics_cpu": m_cpu,
+                             "metric_err": b_metric, "state_err": b_state}
+    print(f"train (b): one AdamW step at SmolLM's widths cut to 2 layers (float32, batch "
+          f"{TRAIN_SMALL['batch']} x {TRAIN_SMALL['seq']}) on the card against the CPU from "
+          f"the same seeded state: loss {m_card[0]['loss']:.6f} vs {m_cpu[0]['loss']:.6f}, "
+          f"worst metric {b_metric:.3g}, worst parameter/moment leaf {b_state:.3g} (limit "
+          f"{TRAIN_TOL}, relative to each leaf's largest value)")
+
+    # ---- (c) the sharded step on ranks sharing the card --------------- #
+    want_metrics, _s, want = small_steps(DEVICE, 2, train=TRAIN_SHARDED)
+    del _s
+    work = tempfile.mkdtemp(prefix="chip-smoke-train-dist-")
+    try:
+        np.savez(Path(work) / "want.npz", **dict(flatten_with_names(want)))
+        plan = {"mesh": TRAIN_MESH, "restore_mesh": TRAIN_RESTORE_MESH,
+                "device_type": DEVICE, "want": str(Path(work) / "want.npz"),
+                "ckpt": str(Path(work) / "ckpt")}
+        t0 = time.perf_counter()
+        ranks = run_dist_ranks(TRAIN_RANKS, "gloo", plan, train_rank_runs)
+        t_ranks = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for r, res in enumerate(ranks):
+        errs = [metric_err(g, w) for g, w in zip(res["metrics"], want_metrics)]
+        if max(errs) > TRAIN_TOL or res["state_err"] > TRAIN_TOL:
+            raise AssertionError(f"train (c) rank {r}: metrics {errs}, state {res['state_err']}")
+        if res["restore_err"] != 0.0 or res["misplaced"]:
+            raise AssertionError(f"train (c) rank {r}: restore err {res['restore_err']}, "
+                                 f"misplaced {res['misplaced']}")
+    record["sharded"] = {"mesh": TRAIN_MESH, "restore_mesh": TRAIN_RESTORE_MESH,
+                         "ranks": ranks, "want_metrics": want_metrics, "wall_s": t_ranks}
+    print(f"train (c): {TRAIN_RANKS} gloo ranks sharing the card, mesh {TRAIN_MESH} "
+          f"(data, model), 2 AdamW steps on DTensors at (b)'s widths, batch "
+          f"{TRAIN_SHARDED['batch']} x {TRAIN_SHARDED['seq']}: loss "
+          f"{ranks[0]['metrics'][-1]['loss']:.6f} vs one device "
+          f"{want_metrics[-1]['loss']:.6f}, worst state err "
+          f"{max(r['state_err'] for r in ranks):.3g} (limit {TRAIN_TOL}); embed.table "
+          f"{ranks[0]['placed']['embed.table']}; its checkpoint restored onto mesh "
+          f"{TRAIN_RESTORE_MESH} (embed.table "
+          f"{ranks[0]['restored_placed']['embed.table']}, wq "
+          f"{ranks[0]['restored_placed']['blocks.0.mixer.wq']}) equal to the state "
+          f"saved on every rank; {t_ranks:.1f} s")
+    OUT_DIR.mkdir(exist_ok=True)
+    with open(OUT_DIR / "chip_smoke_train.json", "w") as f:
+        json.dump(record, f, indent=1)
+    return record
+
+
 def main() -> int:
+    # cuBLAS reads this once, at its first handle: the training phase runs
+    # with deterministic algorithms, which need it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3061,6 +3435,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     lines = [*search_lines, lm_phase()]
     print(f"lm phase done at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    train_phase(card)
+    print(f"train phase done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- result lines --------------------------------------------------- #
     print(json.dumps({"kernels": lines}))

@@ -1,14 +1,9 @@
-"""Distribution layer: distributed search (and, later, mesh context,
-sharding rules and collectives).
+"""Distribution layer: mesh context, sharding rules, collectives, search.
 
 Submodules (imported explicitly; keep this package root import-light):
 
-  search_shard distributed IDList keyword search (model-axis segmented lists)
-
-Not ported yet (they shard model activations, parameters and gradients, and
-come with the training slice):
-
   ctx          ambient mesh context + activation sharding constraints
-  sharding     PartitionSpec rules for param/data/cache trees
+  sharding     DTensor placements for param/data/cache trees
+  search_shard distributed IDList keyword search (model-axis segmented lists)
   collectives  gradient compression for cross-host reduction
 """

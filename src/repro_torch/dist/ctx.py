@@ -1,0 +1,114 @@
+"""Ambient sharding context: a mesh that model code can consult.
+
+Model forward passes call :func:`constrain_batch` / :func:`constrain_vocab`
+/ :func:`constrain_heads` unconditionally; with no active context they are
+the identity, so single-device paths pay nothing and stay mesh-free.  Inside
+``with ctx.use(mesh):`` the same calls redistribute a DTensor to the (data,
+model) layout the reference pins with ``with_sharding_constraint``: a
+``Partial`` sum becomes whole (an all-reduce), a replicated axis is cut.  A
+plain tensor passes through unchanged.
+
+``use`` also enters DTensor's ``implicit_replication``: the plain tensors
+the model makes on the way (positions, masks, rotary tables) count as
+replicated over the mesh when they meet a DTensor.
+
+Constraints are *best effort*, as the reference's: an axis that does not
+divide the mesh dims is left as it is rather than padded.
+"""
+from __future__ import annotations
+
+from contextlib import contextmanager
+from contextvars import ContextVar
+
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
+
+from repro_torch.dist.sharding import _data_axes, _dp_size, _sizes, batch_entries, placements
+
+_ACTIVE: ContextVar["ShardCtx | None"] = ContextVar("repro_torch_shard_ctx", default=None)
+
+
+class ShardCtx:
+    """One active mesh plus the derived axis bookkeeping.
+
+    Axis policy (which mesh dims are data-like, how the batch is placed) is
+    owned by :mod:`repro_torch.dist.sharding` so activations and input
+    placements can never disagree.
+    """
+
+    def __init__(self, mesh: DeviceMesh):
+        self.mesh = mesh
+        self.data_axes = _data_axes(mesh)
+        self.model_size = _sizes(mesh).get("model", 1)
+
+    def dp_size(self) -> int:
+        return _dp_size(self.mesh)
+
+    def _constrain(self, x, entries: dict[str, int]):
+        if not isinstance(x, DTensor):
+            return x
+        want = placements(self.mesh, entries)
+        if tuple(x.placements) == want:
+            return x
+        return x.redistribute(self.mesh, want)
+
+    def _batch(self, x) -> dict[str, int]:
+        """The batch entries when the data dims divide axis 0, else none."""
+        if self.data_axes and x.ndim >= 1 and x.shape[0] % self.dp_size() == 0:
+            return batch_entries(self.mesh)
+        return {}
+
+    def constrain_batch(self, x):
+        """Pin axis 0 (batch) over the data dims; the rest replicated."""
+        entries = self._batch(x)
+        return self._constrain(x, entries) if entries else x
+
+    def constrain_vocab(self, x):
+        """Pin the trailing (vocab) axis over "model"; batch over data."""
+        if self.model_size <= 1 or x.ndim < 1 or x.shape[-1] % self.model_size:
+            return self.constrain_batch(x)
+        entries = self._batch(x) if x.ndim > 1 else {}
+        return self._constrain(x, {**entries, "model": x.ndim - 1})
+
+    def constrain_heads(self, x):
+        """Pin axis 2 (heads) of [B, S, H, hd] over "model" (head-TP)."""
+        if x.ndim != 4 or self.model_size <= 1 or x.shape[2] % self.model_size:
+            return self.constrain_batch(x)
+        return self._constrain(x, {**self._batch(x), "model": 2})
+
+
+# ---------------------------------------------------------------------- #
+# Module-level API (what model code imports)
+# ---------------------------------------------------------------------- #
+
+
+def current() -> ShardCtx | None:
+    """The active ShardCtx, or None outside any ``use`` block."""
+    return _ACTIVE.get()
+
+
+@contextmanager
+def use(mesh: DeviceMesh):
+    """Activate ``mesh`` for the dynamic extent of the block."""
+    token = _ACTIVE.set(ShardCtx(mesh))
+    try:
+        with implicit_replication():
+            yield _ACTIVE.get()
+    finally:
+        _ACTIVE.reset(token)
+
+
+def constrain_batch(x):
+    sctx = current()
+    return x if sctx is None else sctx.constrain_batch(x)
+
+
+def constrain_vocab(x):
+    sctx = current()
+    return x if sctx is None else sctx.constrain_vocab(x)
+
+
+def constrain_heads(x):
+    sctx = current()
+    return x if sctx is None else sctx.constrain_heads(x)

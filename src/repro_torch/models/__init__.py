@@ -1,5 +1,5 @@
 from .config import MLAConfig, ModelConfig, MoEConfig, SSMConfig
-from .model import Model, decode_step, forward, init_cache, init_params, prefill
+from .model import Model, decode_step, forward, init_cache, init_params, lm_loss, prefill
 
 __all__ = [
     "MLAConfig",
@@ -11,5 +11,6 @@ __all__ = [
     "forward",
     "init_cache",
     "init_params",
+    "lm_loss",
     "prefill",
 ]

@@ -24,6 +24,7 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.dist import ctx as shard_ctx
 from repro_torch.kernels import decode_attention as decode_kernel
 
 from .config import ModelConfig
@@ -123,6 +124,8 @@ def gqa_apply(
     v = torch.einsum("bsd,dhk->bshk", x, params.wv)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    # heads over "model" when a mesh is active (the identity otherwise)
+    q = shard_ctx.constrain_heads(q)
 
     if cache is not None:
         start = cache["len"]

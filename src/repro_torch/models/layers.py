@@ -143,7 +143,9 @@ class Embedding(nn.Module):
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    """The rows of ``table`` at ``tokens`` (``F.embedding``: a DTensor table
+    sharded over the vocabulary takes it without a gather of the table)."""
+    return F.embedding(tokens, table)
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

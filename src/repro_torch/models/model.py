@@ -1,12 +1,23 @@
-"""Model assembly: blocks, LM head, KV cache, prefill and decode steps.
+"""Model assembly: blocks, LM head, loss, KV cache, prefill and decode steps.
 
 An ``nn.Module`` model: ``Model.blocks`` is a ``ModuleList`` walked by a
 Python loop where the reference runs ``lax.scan`` over stacked parameters,
 so each layer keeps its own parameters and cache.  The functional entry
 points keep the reference's names and arguments (``init_params``,
-``forward``, ``prefill``, ``decode_step``, ``init_cache``), with the model
-in place of the parameter tree.  The reference's sharding constraints
-(``dist.ctx``) are dropped: multi-GPU is its own ROADMAP item.
+``forward``, ``lm_loss``, ``prefill``, ``decode_step``, ``init_cache``),
+with the model in place of the parameter tree.
+
+``forward`` records gradients for the parameters that require them (the
+train state turns that on); ``prefill`` and ``decode_step`` run under
+``torch.no_grad``.  ``cfg.remat_policy`` maps onto activation
+checkpointing of each block while gradients are recorded: ``"full"``
+recomputes the whole block in the backward pass, ``"dots"`` saves the
+outputs of the matrix products without batch dimensions (the projections
+and MLP products, as ``dots_with_no_batch_dims_saveable`` does) and
+recomputes the rest, ``"none"`` saves everything.  The reference's
+sharding constraints (``dist.ctx``) sit where the reference puts them:
+the batch after the embedding and after each block, the vocabulary on the
+logits, the heads on q; with no active mesh they are the identity.
 
 Blocks: the GQA mixer with a SwiGLU, squared-ReLU or GELU FFN (or none).
 The MLA, Mamba and RWKV-6 mixers and the MoE and RWKV-6 channel-mix FFNs
@@ -19,10 +30,18 @@ the new lengths.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.api import resolve_device
+from repro_torch.dist import ctx as shard_ctx
 
 from .attention import GQA, decode_lengths, gqa_apply, gqa_cache_init
 from .config import ModelConfig
@@ -109,7 +128,31 @@ def _apply_block(block: Block, x, cfg, positions, cache, causal, decode_len):
     return x, new_cache
 
 
-@torch.no_grad()
+_aten = torch.ops.aten
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save matrix products without batch dimensions (``mm``, ``addmm``, and
+    ``bmm`` over a batch of one: einsum's projections); recompute the rest,
+    the attention's batched products among them."""
+    if op in (_aten.mm.default, _aten.addmm.default) or (
+            op is _aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(block_fn, policy: str):
+    if policy == "none":
+        return block_fn
+    if policy == "full":
+        return functools.partial(checkpoint, block_fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            checkpoint, block_fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"unknown remat_policy {policy!r}")
+
+
 def forward(
     params: Model,
     cfg: ModelConfig,
@@ -129,6 +172,7 @@ def forward(
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    x = shard_ctx.constrain_batch(x)
     decode_len = None
     if cache is not None and s == 1 and cfg.attn_window == 0:
         # one [B] length tensor per decode step, shared by every layer
@@ -136,14 +180,62 @@ def forward(
     new_cache = []
     for i, block in enumerate(params.blocks):
         c = None if cache is None else cache[i]
-        x, nc = _apply_block(block, x, cfg, positions, c, causal, decode_len)
+
+        def block_fn(x, block=block, c=c):
+            x, nc = _apply_block(block, x, cfg, positions, c, causal, decode_len)
+            return shard_ctx.constrain_batch(x), nc
+
+        if c is None and torch.is_grad_enabled():
+            x, nc = _remat(block_fn, cfg.remat_policy)(x)
+        else:
+            x, nc = block_fn(x)
         new_cache.append(nc)
     x = params.final_norm(x, cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = unembed(params.embed.table, x)
     else:
         logits = head(params.head.w, x)
+    logits = shard_ctx.constrain_vocab(logits)
     return logits, (None if cache is None else new_cache)
+
+
+# --------------------------------------------------------------------------- #
+# Loss / train objective
+# --------------------------------------------------------------------------- #
+
+
+def lm_loss(params: Model, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Next-token CE for decoders; per-position CE for encoder-only models.
+
+    batch: {"tokens": [B,S]} (+ optional "embeddings", "labels", "mask").
+    The float32 scalar mean over the valid positions."""
+    tokens = batch.get("tokens")
+    embeddings = batch.get("embeddings")
+    logits, _ = forward(params, cfg, tokens=tokens, embeddings=embeddings)
+    valid = None
+    if cfg.encoder_only:
+        labels = batch["labels"]
+        pred = logits[:, -labels.shape[1]:, :]
+    else:
+        labels = tokens[:, 1:]
+        pred = logits[:, :-1, :]
+        if embeddings is not None:  # frontend prefix carries no LM labels
+            pred = pred[:, embeddings.shape[1]:, :]
+        if "mask" in batch:
+            valid = batch["mask"][:, 1:].float()
+    # The label's logit as the reference takes it, a one-hot contraction
+    # (here a masked sum, exact: one term is not zero).  On logits sharded
+    # over the vocabulary (a DTensor) every term stays local to its shard
+    # and one sum crosses shards; a gather there leaves a masked partial
+    # value that DTensor cannot reduce once indexed.
+    pred32 = pred.float()
+    lse = torch.logsumexp(pred32, dim=-1)
+    vocab_ids = torch.arange(pred.shape[-1], device=labels.device)
+    label_logit = torch.where(vocab_ids == labels[..., None], pred32, 0.0).sum(dim=-1)
+    ll = label_logit - lse
+    if valid is None:
+        valid = torch.ones_like(ll)
+    return -(ll * valid).sum() / valid.sum().clamp(min=1.0)
 
 
 # --------------------------------------------------------------------------- #
@@ -159,6 +251,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> lis
     return [gqa_cache_init(cfg, batch, max_len, dtype, dev) for _ in range(cfg.n_layers)]
 
 
+@torch.no_grad()
 def prefill(params: Model, cfg: ModelConfig, tokens, cache, embeddings=None, start=0):
     """Run the prompt (optional frontend prefix + tokens) through the model.
 
@@ -173,6 +266,7 @@ def prefill(params: Model, cfg: ModelConfig, tokens, cache, embeddings=None, sta
     return logits[:, -1, :], cache
 
 
+@torch.no_grad()
 def decode_step(params: Model, cfg: ModelConfig, token, cache, step_position):
     """One token per sequence against the cache. token: [B, 1]."""
     positions = torch.full(token.shape, int(step_position), dtype=torch.int32,
