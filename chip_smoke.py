@@ -133,17 +133,50 @@ Phases (any failure exits non-zero, and no result line is printed):
      seeded state; (c) 4 gloo ranks sharing the card, mesh (4, 1), two steps
      on DTensors against one device, then the checkpoint's elastic restore
      onto mesh (1, 4).  No kernel of the port lies on this path;
-  13. a ``{"kernels": [...]}`` line with all five kernels (searchsorted's
+  13. the MoE, MLA, Mamba and RWKV-6 blocks (``blocks_phase``): (a)
+     DeepSeek-V2-Lite-16B whole (27 layers, MLA + 64 experts top-6 + 2
+     shared, 15.7 B parameters) in bf16 with seeded weights, served through
+     ``launch.serve`` as SmolLM is (8 x 1,024 + 64, plain and with the
+     prefix DAG): prefill ms, decode tok/s, peak device memory; then the
+     last decode step's logits against a prefill over the same tokens, on 2
+     requests served again with ``capacity_factor = E/k`` (no token
+     dropped: a decode step's capacity differs from a prefill's), each MoE
+     layer's expert choices compared and a flip reported with its row.  In
+     bf16 near-tied experts flip between the two on most rows, so the bf16
+     gate is the bf16 model's own rounding: the decode-vs-prefill error at
+     most twice the distance s of the bf16 prefill from a float32 copy's
+     prefill on the same tokens (each side carries about s; 0.15 x the RMS
+     recorded beside it); the float32 copy
+     (62.8 GB) then takes the same check at the elementwise float32 gate
+     with no flip; (b) one MLA and one MoE layer at its widths in float32
+     over 512 tokens, card against CPU: the router's choices equal, the
+     outputs within 1e-4 of their largest value; (c) rwkv6-1.6b at its
+     published widths, served and checked as (a) on all 8 requests; (d)
+     llama4-maverick at its published widths cut to its 2-layer period
+     (dense + MoE, 18.7 B parameters), served the same way, its
+     decode_attention launches counted from 0 over the run (2 GQA layers x
+     63 steps) and every call held against the plain version (rep 5, hd
+     128); its check on 2 requests at the bf16 gate (0.15 x the RMS) on the
+     rows whose experts did not flip (its float32 copy would not fit); (e)
+     the four archs at reduced widths with their kinds kept, float32: a
+     forward, a prefill and decode steps, and 2 AdamW steps, card against
+     CPU within 1e-4 of each output's and leaf's largest value (llama4's
+     top-1 router gets no gradient in exact arithmetic: its moments are
+     held to be float noise).  Each model is freed before the next is
+     built;
+  14. a ``{"kernels": [...]}`` line with all five kernels (searchsorted's
      with ``dist_launches`` per run and rank and ``dist_max_abs_err``,
-     folded into ``max_abs_err``), the nvidia-smi line, and as the last
-     line ``{"ok": true, "device": {...}}``.
+     folded into ``max_abs_err``; decode_attention's launches summed over
+     the SmolLM and llama4 runs, each also apart), the nvidia-smi line, and
+     as the last line ``{"ok": true, "device": {...}}``.
 
 Profiler device times are reported only from a pass in which the profiler
 recorded every launch the pass made (``expected_launches``), else as not
 measured.  Per-call details go to ``OUT_DIR``: ``chip_smoke_rounds.json``
 (search), ``chip_smoke_dist.json`` (distributed search),
 ``chip_smoke_cluster.json`` (cluster), ``chip_smoke_gateway.json`` (gateway),
-``chip_smoke_lm.json`` (LM) and ``chip_smoke_train.json`` (training).
+``chip_smoke_lm.json`` (LM), ``chip_smoke_train.json`` (training) and
+``chip_smoke_blocks.json`` (the MoE, MLA, Mamba and RWKV-6 archs).
 """
 from __future__ import annotations
 
@@ -174,7 +207,7 @@ SEMANTICS = ("slca", "elca")
 INDEXES = ("dag", "tree")
 HBM_BYTES_PER_S = HW["hbm_bw"]  # H100 SXM, NVIDIA data sheet (roofline/analysis.py)
 SCALAR_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
-TIMING_REPS = 15  # was 25; the cluster phase shares the run's time limit
+TIMING_REPS = 10  # was 25, then 15; later phases share the run's time limit
 OUT_DIR = ROOT / "chiprun_out"
 
 
@@ -3377,6 +3410,449 @@ def train_phase(card: str) -> dict:
     return record
 
 
+# --------------------------------------------------------------------------- #
+# The MoE, MLA, Mamba and RWKV-6 blocks: DeepSeek-V2-Lite-16B whole,
+# rwkv6-1.6b, llama4 cut to its period; full-width layers and the reduced
+# archs on the card against the CPU
+# --------------------------------------------------------------------------- #
+
+BLOCKS_ARCHS = {  # (a), (c), (d): arch -> layers kept (None: all)
+    "deepseek-v2-lite-16b": None,
+    "rwkv6-1.6b": None,
+    "llama4-maverick-400b-a17b": 2,  # its dense + MoE period (PERF.md §4)
+}
+BLOCKS_PREFIX_DAG = ("deepseek-v2-lite-16b",)  # also served with --prefix-dag
+# requests in the decode-vs-prefill check (MoE archs without drops, C = Tg):
+# 2 for DeepSeek (its float32 copy, 62.8 GB, must take the same prefill
+# beside its own weights) and llama4 (at 8, [128, 8,696, 8,192] bf16 expert
+# tensors of 18 GB each would not fit beside its 37.4 GB); all 8 for rwkv6
+BLOCKS_CHECK_REQUESTS = {"deepseek-v2-lite-16b": 2, "llama4-maverick-400b-a17b": 2}
+# archs whose float32 copy fits the card: its prefill sets the bf16 check's
+# gate, and its own decode-vs-prefill check runs at the float32 gate
+# (llama4's 74.7 GB in float32 would not fit)
+BLOCKS_FLOAT32 = ("deepseek-v2-lite-16b", "rwkv6-1.6b")
+BLOCKS_LAYER_TOKENS = 512  # (b): one MLA and one MoE layer at (a)'s widths
+BLOCKS_TOL = 1e-4  # (b), (e): of each output's / leaf's largest value
+BLOCKS_NOISE = 1e-8  # (e): a top-1 router's moments, float noise on both devices
+# (e): each arch's first N layers at reduced widths, their kinds kept
+# (reduced() alone resets layer_pattern, which makes MoE and MLA archs GQA):
+# deepseek (mla, swiglu) + (mla, moe); llama4 (gqa, swiglu) + (gqa, moe);
+# jamba its 8-layer period (mamba, moe, swiglu, one gqa); rwkv6 two layers
+BLOCKS_REDUCED = {"deepseek-v2-lite-16b": 2, "llama4-maverick-400b-a17b": 2,
+                  "jamba-1.5-large-398b": 8, "rwkv6-1.6b": 2}
+
+
+def no_drops(cfg):
+    """``cfg`` with capacity_factor E/k: every expert takes every token (C >=
+    Tg), so a decode step routes as a prefill does (ROADMAP §3)."""
+    import dataclasses
+
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+
+
+def blocks_cfg(arch: str):
+    """(a), (c), (d): the arch at its published widths, depth cut as
+    ``BLOCKS_ARCHS`` says (whole scan units of its pattern)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    layers = BLOCKS_ARCHS[arch]
+    if layers is None:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=layers, layer_pattern=cfg.layer_pattern[:layers])
+
+
+class RouteRecorder:
+    """Keeps each MoE layer's expert choices: inside ``with RouteRecorder()
+    as rec`` every call of ``models.moe._route`` appends the top-k expert ids
+    of each token, in ascending order, as a CPU tensor [G*Tg, k] (the
+    router's softmax recomputed on the same inputs, then the same stable
+    sort)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        self._orig = moe._route
+
+        def wrapped(params, xg, m, capacity):
+            probs = torch.softmax(torch.einsum("gtd,de->gte", xg.float(), params.router.float()),
+                                  dim=-1)
+            top = torch.sort(probs, dim=-1, descending=True, stable=True)[1][..., :m.top_k]
+            self.calls.append(top.reshape(-1, m.top_k).sort(dim=-1).values.cpu())
+            return self._orig(params, xg, m, capacity)
+
+        moe._route = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._route = self._orig
+
+
+def measure_decode(model, cfg, prompts) -> dict:
+    """The last decode step's logits against a prefill over the same tokens,
+    for an MoE arch where no token is dropped (served again with
+    capacity_factor E/k: a decode step's capacity differs from a
+    prefill's, ROADMAP §3), each MoE layer's expert choices at the last
+    step against the prefill's at the same position.  Measures and prints;
+    the callers gate.  ``rec["seq"]``, ``["got"]`` and ``["want"]`` are the
+    tokens and the two logits (popped by the callers)."""
+    import torch
+
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import init_cache, prefill
+
+    check_cfg = no_drops(cfg)
+    n_moe = sum(f == "moe" for _m, f in cfg.layer_pattern)
+    n = len(prompts)
+    with RouteRecorder() as routes:
+        out = launcher.serve(model, check_cfg, prompts, LM_GEN)
+        last_step = routes.calls[len(routes.calls) - n_moe:]
+        routes.calls.clear()
+        seq = torch.cat([torch.as_tensor(np.stack(prompts), device=DEVICE),
+                         out["tokens"][:, :-1]], dim=1)
+        want, _ = prefill(model, check_cfg, seq, init_cache(check_cfg, n, seq.shape[1], DEVICE))
+        at_last = [c.reshape(n, seq.shape[1], -1)[:, -1] for c in routes.calls]
+    got = out["logits"]
+    if got.shape != want.shape or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"decode vs prefill ({cfg.dtype}): logits {tuple(got.shape)} "
+                             f"not finite")
+    flips = torch.stack([(a != b).any(dim=-1) for a, b in zip(last_step, at_last)]
+                        ) if n_moe else torch.zeros((0, n), dtype=torch.bool)
+    err = (got.float() - want.float()).abs()
+    rms = float(want.float().square().mean().sqrt())
+    rec = {"requests": n, "capacity_factor": check_cfg.moe.capacity_factor if cfg.moe else None,
+           "max_abs_err": float(err.max()), "logits_rms": rms,
+           "flips_per_layer": flips.sum(dim=1).tolist(),
+           "rows_flipped": torch.nonzero(flips.any(dim=0)).flatten().tolist(),
+           "argmax_equal": int((got.argmax(-1) == want.argmax(-1)).sum()),
+           "over_elementwise_tol": int((err > DECODE_TOL + DECODE_TOL * want.float().abs()).sum()),
+           "seq": seq, "got": got, "want": want}
+    print(f"decode vs prefill ({cfg.dtype}, {n} requests"
+          + (f", capacity_factor {rec['capacity_factor']:.4g}: no drops" if cfg.moe else "")
+          + f"): max abs err {rec['max_abs_err']:.4f}, logits RMS {rms:.3f} "
+          f"({rec['max_abs_err'] / rms:.3f} x RMS), {rec['over_elementwise_tol']} of "
+          f"{want.numel()} logits over {DECODE_TOL} abs + rel, argmax equal on "
+          f"{rec['argmax_equal']} of {n} rows"
+          + (f"; expert choices at the last step differ from the prefill's on rows "
+             f"{rec['rows_flipped']} (flips per MoE layer {rec['flips_per_layer']})"
+             if n_moe else ""))
+    return rec
+
+
+def serve_full_width(arch: str, rec: DecodeRecorder) -> dict:
+    """One arch at its published widths, bf16, seeded weights: served through
+    ``launch.serve`` (8 x 1,024 + 64, plain and, for BLOCKS_PREFIX_DAG, with
+    the prefix DAG), decode_attention's launches counted from 0 over each
+    run; then the decode-vs-prefill check (``measure_decode``) and its
+    gate, for BLOCKS_FLOAT32 with a float32 copy of the model."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import init_cache, init_params, prefill
+
+    da = module("decode_attention")
+    cfg = blocks_cfg(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(0, cfg, DEVICE)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = torch.cuda.max_memory_allocated()
+    if n_params != cfg.param_count():
+        raise AssertionError(f"blocks {arch}: {n_params} parameters, config says "
+                             f"{cfg.param_count()}")
+    kinds = sorted({k for pair in cfg.layer_pattern for k in pair})
+    print(f"blocks {arch}: {cfg.n_layers} layers {kinds}, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}: {n_params} parameters from seed 0 in {t_init:.2f} s, "
+          f"{weights / 2**30:.2f} GiB on the card")
+    prompts = launcher.make_prompts(cfg.vocab, LM_REQUESTS, LM_PROMPT, LM_SHARED, seed=0)
+    launcher.serve(model, cfg, [p[:64] for p in prompts[:2]], gen=4)  # warm
+    steps = LM_GEN - 1
+    want_launches = sum(m == "gqa" for m, _f in cfg.layer_pattern) * steps
+    runs, plain = {}, None
+    for mode in ("plain", "prefix-dag") if arch in BLOCKS_PREFIX_DAG else ("plain",):
+        rec.label = f"{arch} {mode}"
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        da.LAUNCHES = 0
+        out = launcher.serve(model, cfg, prompts, LM_GEN, prefix_dag=mode == "prefix-dag")
+        torch.cuda.synchronize()
+        launches = da.LAUNCHES
+        peak = torch.cuda.max_memory_allocated()
+        if launches != want_launches:
+            raise AssertionError(f"blocks {arch} {mode}: {launches} decode_attention launches, "
+                                 f"want {want_launches} (GQA layers x {steps} steps)")
+        logits, toks = out["logits"], out["tokens"]
+        if logits.shape != (LM_REQUESTS, cfg.vocab) or not torch.isfinite(logits.float()).all():
+            raise AssertionError(f"blocks {arch} {mode}: logits {tuple(logits.shape)} not finite")
+        if toks.shape != (LM_REQUESTS, LM_GEN) or not ((toks >= 0) & (toks < cfg.vocab)).all():
+            raise AssertionError(f"blocks {arch} {mode}: tokens {tuple(toks.shape)} out of range")
+        tok_s = steps * LM_REQUESTS / out["t_decode"]
+        runs[mode] = {"t_prefill": out["t_prefill"], "t_decode": out["t_decode"],
+                      "tok_s": tok_s, "launches": launches, "peak_memory_bytes": peak,
+                      "savings": out["savings"]}
+        print(f"blocks {arch} {mode}: {LM_REQUESTS} requests x {LM_PROMPT} prompt tokens "
+              f"({LM_SHARED} shared) + {LM_GEN} generated; prefill "
+              f"{out['t_prefill'] * 1e3:.2f} ms, decode {steps} steps in "
+              f"{out['t_decode'] * 1e3:.2f} ms = {tok_s:.1f} tok/s; peak device memory "
+              f"{peak / 2**30:.2f} GiB; decode_attention launches {launches}"
+              + ("" if out["savings"] is None else
+                 f"; plan savings {100 * out['savings']:.1f}% of prefill tokens"))
+        plain = out if mode == "plain" else plain
+    rec.label = ""
+    del plain, out
+    # decode vs prefill (measure_decode), then the gate.  Where a float32
+    # copy fits: each bf16 result carries bf16 rounding of about s, the bf16
+    # prefill's distance from the copy's prefill on the same tokens, so by
+    # the triangle inequality decode and prefill differ by at most 2 s when
+    # the decode step is as accurate as the prefill (in bf16 near-tied
+    # experts flip between the two, and rounding grows over 24-27 layers
+    # past 0.15 x the RMS); the copy's own check holds at the float32 gate.
+    # Elsewhere the bf16 gate (0.15 x the RMS) on every row whose experts
+    # did not flip.
+    n = BLOCKS_CHECK_REQUESTS.get(arch, LM_REQUESTS)
+    t0 = time.perf_counter()
+    agree = measure_decode(model, cfg, prompts[:n])
+    seq, got, want = agree.pop("seq"), agree.pop("got"), agree.pop("want")
+    record = {"arch": arch, "layers": cfg.n_layers, "params": n_params, "weights_bytes": weights,
+              "init_s": t_init, "runs": runs, "decode_vs_prefill": agree}
+    if arch in BLOCKS_FLOAT32:
+        del model
+        torch.cuda.empty_cache()
+        cfg32 = no_drops(dataclasses.replace(cfg, dtype="float32"))
+        model32 = init_params(0, cfg32, DEVICE)  # the same seed: bf16's values unrounded
+        want32, _ = prefill(model32, cfg32, seq, init_cache(cfg32, n, seq.shape[1], DEVICE))
+        agree["bf16_rounding"] = float((want.float() - want32.float()).abs().max())
+        agree["decode_vs_float32"] = float((got.float() - want32.float()).abs().max())
+        agree["gate"] = 2 * agree["bf16_rounding"]
+        print(f"blocks {arch}: the bf16 prefill against its float32 copy's on the same tokens: "
+              f"max abs {agree['bf16_rounding']:.4f}, the bf16 decode step against it "
+              f"{agree['decode_vs_float32']:.4f}; the bf16 gate 2 x {agree['bf16_rounding']:.4f}"
+              f" ({DECODE_TOL} x RMS = {DECODE_TOL * agree['logits_rms']:.4f} "
+              f"{'met' if agree['max_abs_err'] <= DECODE_TOL * agree['logits_rms'] else 'not met'})")
+        if not agree["max_abs_err"] <= agree["gate"]:
+            raise AssertionError(f"blocks {arch}: bf16 decode vs prefill beyond bf16 rounding: "
+                                 f"{agree}")
+        del seq, got, want, want32
+        f32 = measure_decode(model32, cfg32, prompts[:n])
+        for key in ("seq", "got", "want"):
+            f32.pop(key)
+        record["decode_vs_prefill_float32"] = f32
+        if f32["over_elementwise_tol"] or f32["rows_flipped"]:
+            raise AssertionError(f"blocks {arch}: float32 decode vs prefill: {f32}")
+        del model32
+    else:
+        keep = torch.ones(n, dtype=torch.bool)
+        keep[agree["rows_flipped"]] = False
+        agree["gate"] = DECODE_TOL * float(want[keep].float().square().mean().sqrt()) if keep.any() \
+            else None
+        err = float((got[keep].float() - want[keep].float()).abs().max()) if keep.any() else None
+        print(f"blocks {arch}: on the {int(keep.sum())} rows whose experts did not flip, max abs "
+              f"err {err} (the bf16 gate, {DECODE_TOL} x their RMS: {agree['gate']})")
+        if err is None or err > agree["gate"]:
+            raise AssertionError(f"blocks {arch}: bf16 decode vs prefill: {agree}")
+        del model, seq, got, want
+    agree["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return record
+
+
+def full_width_layers() -> dict:
+    """(b): one MLA and one MoE layer at DeepSeek-V2-Lite's widths, float32,
+    from one seeded CPU model copied to the card, over BLOCKS_LAYER_TOKENS
+    tokens: the router's choices equal (a flip is reported with its token)
+    and each output within BLOCKS_TOL of its largest value."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, moe
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"), dtype="float32")
+    m = cfg.moe
+    gen = torch.Generator().manual_seed(0)
+    mla = attention.MLA(cfg, torch.float32, "cpu")
+    mla.reset_parameters(gen)
+    ffn = moe.moe_init(gen, cfg, torch.float32, "cpu")
+    b, s = 2, BLOCKS_LAYER_TOKENS // 2
+    x = torch.randn((b, s, cfg.d_model), generator=gen)
+    pos = torch.arange(s, dtype=torch.int32).expand(b, s)
+    out = {}
+    want, _ = attention.mla_apply(mla, x, cfg, pos)
+    got, _ = attention.mla_apply(copy.deepcopy(mla).to(DEVICE), x.to(DEVICE), cfg, pos.to(DEVICE))
+    out["mla_err"] = float((got.cpu() - want).abs().max()) / float(want.abs().max())
+    # routing: the top-k margin of each token (CPU, float64) beside the choices
+    xg = x.reshape(1, b * s, cfg.d_model)
+    probs = torch.softmax(xg[0].double() @ ffn.router.double(), dim=-1)
+    top = probs.sort(dim=-1, descending=True).values
+    out["min_topk_margin"] = float((top[:, m.top_k - 1] - top[:, m.top_k]).min())
+    cap = moe.capacity_of(b * s, m)
+    ffn_card = copy.deepcopy(ffn).to(DEVICE)
+    want_r = moe._route(ffn, xg, m, cap)
+    got_r = moe._route(ffn_card, xg.to(DEVICE), m, cap)
+    flips = {}
+    for i, name in ((0, "take"), (1, "in_use"), (2, "slot"), (3, "inv"), (5, "stok")):
+        where = torch.nonzero(got_r[i].cpu() != want_r[i]).tolist()
+        if where:
+            flips[name] = where[:16]
+    out["route_flips"] = flips
+    out["dropped"] = int((want_r[4] == 0).sum())
+    out["capacity"] = cap
+    want = moe.moe_apply(ffn, x, cfg)
+    got = moe.moe_apply(ffn_card, x.to(DEVICE), cfg)
+    out["moe_err"] = float((got.cpu() - want).abs().max()) / float(want.abs().max())
+    print(f"blocks (b): one MLA and one MoE layer at DeepSeek-V2-Lite's widths (float32, "
+          f"{b * s} tokens), card against CPU: MLA max err {out['mla_err']:.3g}, MoE max err "
+          f"{out['moe_err']:.3g} of the largest output (limit {BLOCKS_TOL}); router choices "
+          f"{'equal' if not flips else 'DIFFER: ' + json.dumps(flips)} (smallest top-{m.top_k} "
+          f"margin {out['min_topk_margin']:.3g}, capacity {cap}, {out['dropped']} of "
+          f"{b * s * m.top_k} entries dropped)")
+    if flips or out["mla_err"] > BLOCKS_TOL or out["moe_err"] > BLOCKS_TOL:
+        raise AssertionError(f"blocks (b): card vs CPU {out}")
+    return out
+
+
+def reduced_archs() -> dict:
+    """(e): the four archs at BLOCKS_REDUCED sizes, float32, one seeded
+    model: a forward, a prefill and 3 decode steps, and 2 AdamW steps, each
+    on the card against the CPU (each output and leaf within BLOCKS_TOL of
+    its largest value; a top-1 router's moments held to be noise)."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, forward, init_cache, init_params, prefill
+    from repro_torch.models.convert import state_from_numpy, state_to_numpy
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.tree import flatten_with_names
+
+    def rel(a, b) -> float:
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    out = {}
+    for arch, n in BLOCKS_REDUCED.items():
+        full = get_config(arch)
+        cfg = full.reduced(dtype="float32", n_layers=n, scan_period=n,
+                           layer_pattern=full.layer_pattern[:n])
+        rng = np.random.default_rng(1)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 14)))
+        cpu_model = init_params(0, cfg, "cpu")
+        serving = {}
+        for dev, model in (("cpu", cpu_model), (DEVICE, copy.deepcopy(cpu_model).to(DEVICE))):
+            t = toks.to(dev)
+            logits = [forward(model, cfg, tokens=t)[0]]
+            cache = init_cache(cfg, 3, 14, dev)
+            logits.append(prefill(model, cfg, t[:, :11], cache)[0])
+            for i in range(11, 14):
+                last, cache = decode_step(model, cfg, t[:, i:i + 1], cache, i)
+                logits.append(last)
+            serving[dev] = logits
+        serve_err = max(rel(a, b) for a, b in zip(serving[DEVICE], serving["cpu"]))
+        init_state, step = make_train_step(cfg, "adamw", base_lr=1e-4, warmup=1, total_steps=10)
+        tree = state_to_numpy(init_state(cpu_model))
+        batches = [rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32) for _ in range(2)]
+        trained = {}
+        for dev in ("cpu", DEVICE):
+            state = state_from_numpy(tree, cfg, dev)
+            for bt in batches:
+                state, metrics = step(state, {"tokens": torch.as_tensor(bt, device=dev)})
+            trained[dev] = ({k: float(v) for k, v in metrics.items()}, state_to_numpy(state))
+        routers = (tuple(f"blocks/{u}/ffn/router" for u, (_m, f) in enumerate(cfg.scan_unit)
+                         if f == "moe") if cfg.moe and cfg.moe.top_k == 1 else ())
+        noise = tuple(f"{part}/{r}" for r in routers for part in ("m", "v"))
+        (m_card, s_card), (m_cpu, s_cpu) = trained[DEVICE], trained["cpu"]
+        metric = metric_err(m_card, m_cpu)
+        worst, noise_max = 0.0, 0.0
+        want_flat = dict(flatten_with_names(s_cpu))
+        for name, a in flatten_with_names(s_card):
+            b = np.asarray(want_flat[name], np.float64)
+            a = np.asarray(a, np.float64)
+            if name.endswith(noise):
+                noise_max = max(noise_max, float(np.abs(a).max()), float(np.abs(b).max()))
+                continue
+            diff = float(np.abs(a - b).max(initial=0.0))
+            worst = max(worst, diff / float(np.abs(b).max(initial=0.0)) if diff else 0.0)
+        out[arch] = {"layers": cfg.n_layers, "pattern": [list(p) for p in cfg.scan_unit],
+                     "serve_err": serve_err, "metric_err": metric, "state_err": worst,
+                     "top1_router_moments_max": noise_max if noise else None,
+                     "loss_card": m_card["loss"], "loss_cpu": m_cpu["loss"]}
+        print(f"blocks (e) {arch} reduced with its kinds ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, float32), card against CPU: forward/prefill/decode max err "
+              f"{serve_err:.3g}; 2 AdamW steps: metrics {metric:.3g}, worst parameter / moment "
+              f"leaf {worst:.3g} (limit {BLOCKS_TOL})"
+              + (f", top-1 router moments at most {noise_max:.3g} on either device (limit "
+                 f"{BLOCKS_NOISE})" if noise else ""))
+        if (serve_err > BLOCKS_TOL or metric > BLOCKS_TOL or worst > BLOCKS_TOL
+                or noise_max >= BLOCKS_NOISE):
+            raise AssertionError(f"blocks (e) {arch}: {out[arch]}")
+    return out
+
+
+def blocks_phase(card: str) -> dict:
+    """The MoE, MLA, Mamba and RWKV-6 blocks (module docstring, phase 13);
+    returns the decode_attention calls of the llama4 run, checked and timed."""
+    import torch
+
+    da = module("decode_attention")
+    record = {"card": card}
+    with DecodeRecorder() as rec:
+        for arch in BLOCKS_ARCHS:
+            record[arch] = serve_full_width(arch, rec)
+    # the llama4 run's decode_attention calls (rep 5, hd 128) against plain
+    calls = [args for label, args in rec.calls if label.startswith("llama4")]
+    checked = [check_decode(args, "bfloat16") for args in calls]
+    by = {"bytes": 0.0, "operations": 0.0}
+    for r in checked:
+        by[r["bound_by"]] += r["bound_ms"]
+    sdpa_args = [sdpa_inputs(*a) for a in calls]
+    llama4 = {
+        "launches": record["llama4-maverick-400b-a17b"]["runs"]["plain"]["launches"],
+        "calls": len(calls), "shapes": checked[0]["shapes"],
+        "max_abs_err": max(r["max_abs_err"] for r in checked),
+        "ms": pass_ms([lambda a=a: da.decode_attention(*a) for a in calls]),
+        "plain_ms": pass_ms([lambda a=a: da.decode_attention_plain(*a) for a in calls]),
+        "library_ms": pass_ms([lambda a=a: sdpa_call(*a) for a in sdpa_args]),
+        "bound_ms": sum(by.values()), "bound_by": max(by, key=by.get),
+    }
+    del rec, calls, sdpa_args
+    torch.cuda.empty_cache()
+    q_shape, k_shape = llama4["shapes"][:2]
+    print(f"blocks (d): decode_attention on the llama4 run's {llama4['calls']} calls (q "
+          f"{q_shape}, k {k_shape}: rep {q_shape[1] // k_shape[2]}, hd {q_shape[2]}) == plain (max abs "
+          f"err {llama4['max_abs_err']:.3g}, limit {KERNEL_TOL['bfloat16']}); one pass (CUDA "
+          f"events, median of {TIMING_REPS}): kernel {llama4['ms']:.4f} ms plain "
+          f"{llama4['plain_ms']:.4f} ms library {llama4['library_ms']:.4f} ms bound "
+          f"{llama4['bound_ms']:.5f} ms ({llama4['bound_by']})")
+    record["decode_attention_llama4"] = llama4
+    record["layers"] = full_width_layers()
+    record["reduced"] = reduced_archs()
+    OUT_DIR.mkdir(exist_ok=True)
+    with open(OUT_DIR / "chip_smoke_blocks.json", "w") as f:
+        json.dump(record, f, indent=1)
+    return llama4
+
+
 def main() -> int:
     # cuBLAS reads this once, at its first handle: the training phase runs
     # with deterministic algorithms, which need it
@@ -3438,6 +3914,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_phase(card)
     print(f"train phase done at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    llama4 = blocks_phase(card)
+    print(f"blocks phase done at {time.perf_counter() - t_start:.1f} s")
+    decode_line = lines[-1]
+    decode_line["lm_launches"] = decode_line["launches"]
+    decode_line["llama4_launches"] = llama4["launches"]
+    decode_line["launches"] += llama4["launches"]
+    decode_line["max_abs_err"] = max(decode_line["max_abs_err"], llama4["max_abs_err"])
+    decode_line["llama4"] = llama4
 
     # ---- result lines --------------------------------------------------- #
     print(json.dumps({"kernels": lines}))

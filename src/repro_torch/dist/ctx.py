@@ -1,8 +1,10 @@
 """Ambient sharding context: a mesh that model code can consult.
 
 Model forward passes call :func:`constrain_batch` / :func:`constrain_vocab`
-/ :func:`constrain_heads` unconditionally; with no active context they are
-the identity, so single-device paths pay nothing and stay mesh-free.  Inside
+/ :func:`constrain_heads` (and the MoE's :func:`moe_groups` /
+:func:`constrain_groups` / :func:`constrain_experts`) unconditionally;
+with no active context they are the identity, so single-device paths pay
+nothing and stay mesh-free.  Inside
 ``with ctx.use(mesh):`` the same calls redistribute a DTensor to the (data,
 model) layout the reference pins with ``with_sharding_constraint``: a
 ``Partial`` sum becomes whole (an all-reduce), a replicated axis is cut.  A
@@ -77,6 +79,30 @@ class ShardCtx:
             return self.constrain_batch(x)
         return self._constrain(x, {**self._batch(x), "model": 2})
 
+    def moe_groups(self, t: int, num_experts: int) -> int:
+        """The MoE's routing groups for ``t`` tokens: one per data shard when
+        they divide ``t`` and each group holds ``num_experts`` tokens or
+        more, else one."""
+        g = self.dp_size()
+        return g if g > 1 and t % g == 0 and t // g >= num_experts else 1
+
+    def constrain_groups(self, x):
+        """Pin axis 0 (the MoE's token groups) over the data dims, the rest
+        whole, in the forward pass and for the gradient in the backward:
+        DTensor's view rules mis-size a reshape of a tensor sharded on two
+        mesh dims, and the MoE reshapes its tokens into groups and back."""
+        if not isinstance(x, DTensor):
+            return x
+        return x.redistribute(self.mesh, placements(self.mesh, self._batch(x)))
+
+    def constrain_experts(self, x):
+        """Pin [G, E, C, D]: groups over the data dims, experts over "model"
+        when it divides E (expert parallelism)."""
+        entries = self._batch(x)
+        if self.model_size > 1 and x.shape[1] % self.model_size == 0:
+            entries["model"] = 1
+        return self._constrain(x, entries)
+
 
 # ---------------------------------------------------------------------- #
 # Module-level API (what model code imports)
@@ -112,3 +138,18 @@ def constrain_vocab(x):
 def constrain_heads(x):
     sctx = current()
     return x if sctx is None else sctx.constrain_heads(x)
+
+
+def moe_groups(t: int, num_experts: int) -> int:
+    sctx = current()
+    return 1 if sctx is None else sctx.moe_groups(t, num_experts)
+
+
+def constrain_groups(x):
+    sctx = current()
+    return x if sctx is None else sctx.constrain_groups(x)
+
+
+def constrain_experts(x):
+    sctx = current()
+    return x if sctx is None else sctx.constrain_experts(x)

@@ -24,6 +24,7 @@ from repro_torch.api import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.models import ModelConfig, decode_step, init_cache, init_params, prefill
 from repro_torch.serve.prefix_dag import run_with_prefix_dag
+from repro_torch.tree import tree_map
 
 
 def make_prompts(vocab: int, requests: int, prompt_len: int, shared_prefix: int,
@@ -37,6 +38,10 @@ def make_prompts(vocab: int, requests: int, prompt_len: int, shared_prefix: int,
                                              dtype=np.int32)])
         for _ in range(requests)
     ]
+
+
+def _batched(first, *rest):
+    return torch.cat([first, *rest]) if isinstance(first, torch.Tensor) else first
 
 
 def _sync(dev: torch.device) -> None:
@@ -63,13 +68,9 @@ def serve(model, cfg: ModelConfig, prompts: list[np.ndarray], gen: int,
     if prefix_dag:
         logits, caches, plan = run_with_prefix_dag(model, cfg, prompts, max_len=max_len)
         savings = plan.savings
-        # one batch of per-request caches ("len" equal: the prompts share a length)
-        cache = [
-            {"k": torch.cat([c[i]["k"] for c in caches]),
-             "v": torch.cat([c[i]["v"] for c in caches]),
-             "len": caches[0][i]["len"]}
-            for i in range(cfg.n_layers)
-        ]
+        # one batch of per-request caches: every tensor leaf concatenated on
+        # the batch axis ("len" equal: the prompts share a length)
+        cache = [tree_map(_batched, *(c[i] for c in caches)) for i in range(cfg.n_layers)]
     else:
         batch = torch.as_tensor(np.stack(prompts), device=dev)
         cache = init_cache(cfg, n, max_len, dev)

@@ -1,6 +1,6 @@
-"""GQA attention (RoPE, optional sliding window) with a KV cache.
+"""Attention mixers: GQA (RoPE, optional sliding window) and MLA (DeepSeek).
 
-The reference's ``repro.models.attention`` GQA part, in PyTorch.  Three
+The reference's ``repro.models.attention`` in PyTorch.  GQA has three
 entry modes, as there:
 
   * train/prefill without a cache: full sequence, causal (or bidirectional
@@ -14,8 +14,16 @@ entry modes, as there:
 
 The reference computes all three in XLA (its Pallas decode kernel is
 reached only from its tests); ``_sdpa`` here stays plain PyTorch for the
-same reason, and never calls ``scaled_dot_product_attention``.  MLA comes
-with its own port (ROADMAP §1).
+same reason, and never calls ``scaled_dot_product_attention``.
+
+MLA caches the compressed latent and the shared rope key (its whole
+point) and attends with the absorbed scores: ``q_nope·W_uk`` against the
+latent plus ``q_rope·k_rope``, each product in the activation dtype, added
+in float32, the softmax in float32; the values come from the latent and
+``W_uv``.  Its decode step runs the same code over the cache (the
+reference's MLA does not reach its decode kernel either).  Both mixers
+write a prefill's or decode step's new rows into the caller's cache
+tensors in place.
 """
 from __future__ import annotations
 
@@ -27,7 +35,7 @@ from torch import nn
 from repro_torch.dist import ctx as shard_ctx
 from repro_torch.kernels import decode_attention as decode_kernel
 
-from .config import ModelConfig
+from .config import MLAConfig, ModelConfig
 from .layers import _param, apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -170,5 +178,98 @@ def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int,
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
+        "len": 0,
+    }
+
+
+# --------------------------------------------------------------------------- #
+# MLA (multi-head latent attention, DeepSeek-V2)
+# --------------------------------------------------------------------------- #
+
+
+class MLA(nn.Module):
+    """Parameters ``wq`` [D, H, nope+rope] (full-rank q: V2-Lite has no q
+    LoRA), ``w_dkv`` [D, R], ``w_krope`` [D, rd], ``w_uk`` [R, H, nope],
+    ``w_uv`` [R, H, vd] and ``wo`` [H, vd, D], the reference's layout."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        m: MLAConfig = cfg.mla
+        d, h = cfg.d_model, cfg.n_heads
+        self.wq = _param((d, h, m.qk_nope_head_dim + m.qk_rope_head_dim), dtype, device)
+        self.w_dkv = _param((d, m.kv_lora_rank), dtype, device)
+        self.w_krope = _param((d, m.qk_rope_head_dim), dtype, device)
+        self.w_uk = _param((m.kv_lora_rank, h, m.qk_nope_head_dim), dtype, device)
+        self.w_uv = _param((m.kv_lora_rank, h, m.v_head_dim), dtype, device)
+        self.wo = _param((h, m.v_head_dim, d), dtype, device)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        # each is the reference's dense_init of its first axis against the rest
+        # (wo: the first two against the last), reshaped
+        for w in (self.wq, self.w_dkv, self.w_krope, self.w_uk, self.w_uv, self.wo):
+            d_in = w.shape[0] * (w.shape[1] if w is self.wo else 1)
+            w.data.copy_(dense_init(gen, d_in, w.numel() // d_in, w.dtype).reshape(w.shape))
+
+
+def mla_apply(
+    params: MLA,
+    x,  # [B, S, D]
+    cfg: ModelConfig,
+    positions,  # [B, S] int32
+    cache: dict | None = None,  # {"latent":[B,T,R], "krope":[B,T,rd], "len": int}
+    causal: bool = True,
+):
+    m: MLAConfig = cfg.mla
+    b, s, _ = x.shape
+    q = torch.einsum("bsd,dhk->bshk", x, params.wq)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    latent = torch.einsum("bsd,dr->bsr", x, params.w_dkv)  # [B,S,R]
+    krope = torch.einsum("bsd,dr->bsr", x, params.w_krope)[:, :, None, :]
+    krope = apply_rope(krope, positions, cfg.rope_theta)[:, :, 0]  # [B,S,rd]
+
+    if cache is not None:
+        start = cache["len"]
+        latent_all, krope_all = cache["latent"], cache["krope"]
+        t = latent_all.shape[1]
+        if start + s > t:
+            raise ValueError(f"cache of {t} positions holds {start}; {s} more do not fit")
+        latent_all[:, start:start + s] = latent.to(latent_all.dtype)
+        krope_all[:, start:start + s] = krope.to(krope_all.dtype)
+        new_cache = {"latent": latent_all, "krope": krope_all, "len": start + s}
+        kpos = torch.arange(t, device=x.device)[None, None, :]
+        mask = kpos < (start + s)
+        if causal:
+            mask = mask & (kpos <= positions[:, :, None])
+    else:
+        latent_all, krope_all = latent, krope
+        new_cache = None
+        if causal:
+            mask = torch.arange(s, device=x.device)[None, None, :] <= positions[:, :, None]
+        else:
+            mask = torch.ones((b, s, s), dtype=torch.bool, device=x.device)
+
+    # absorbed attention: score = q_nope·(W_uk·latent) + q_rope·k_rope,
+    # W_uk folded into q (q_lat [B,S,H,R])
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, params.w_uk)
+    logits = torch.einsum("bshr,btr->bhst", q_lat, latent_all).float()
+    logits = logits + torch.einsum("bshk,btk->bhst", q_rope, krope_all).float()
+    logits = logits / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    logits = logits + torch.where(mask[:, None], 0.0, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    # values from the latent, W_uv on the output side
+    ctx = torch.einsum("bhst,btr->bshr", probs, latent_all)  # [B,S,H,R]
+    v_ctx = torch.einsum("bshr,rhk->bshk", ctx, params.w_uv)  # [B,S,H,vd]
+    y = torch.einsum("bshk,hkd->bsd", v_ctx, params.wo)
+    return y, new_cache
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, device="cuda"):
+    m: MLAConfig = cfg.mla
+    return {
+        "latent": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype, device=device),
+        "krope": torch.zeros((batch, max_len, m.qk_rope_head_dim), dtype=dtype, device=device),
         "len": 0,
     }

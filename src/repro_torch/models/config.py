@@ -142,8 +142,7 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Exact parameter count of the port's model, built on the ``meta``
-        device (no allocation).  Raises ``NotImplementedError`` for a block
-        kind the port does not have yet."""
+        device (no allocation)."""
         from repro_torch.models.model import count_params
 
         return count_params(self)

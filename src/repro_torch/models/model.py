@@ -19,14 +19,17 @@ sharding constraints (``dist.ctx``) sit where the reference puts them:
 the batch after the embedding and after each block, the vocabulary on the
 logits, the heads on q; with no active mesh they are the identity.
 
-Blocks: the GQA mixer with a SwiGLU, squared-ReLU or GELU FFN (or none).
-The MLA, Mamba and RWKV-6 mixers and the MoE and RWKV-6 channel-mix FFNs
-raise ``NotImplementedError``: they come with ROADMAP §1's LM items.
+Blocks: every (mixer, FFN) pair of ``models/config.py``: the GQA, MLA,
+Mamba and RWKV-6 time-mix mixers; the SwiGLU, squared-ReLU, GELU, MoE and
+RWKV-6 channel-mix FFNs, or none.
 
-The cache is a list with one dict per layer, ``{"k", "v": [B, T, Hk, hd],
-"len": int}``; ``len`` is a host int, as the reference keeps it a scalar.
-The steps write into the cache tensors in place and return the list with
-the new lengths.
+The cache is a list with one dict per layer, the mixer's own: GQA
+``{"k", "v": [B, T, Hk, hd], "len"}``, MLA ``{"latent", "krope", "len"}``,
+Mamba ``{"h", "conv"}``, RWKV-6 ``{"s", "last"}``; a layer whose FFN
+carries a cache (the RWKV-6 channel mix) holds it under ``"ffn"``.
+``len`` is a host int, as the reference keeps it a scalar.  The steps
+write into the cache tensors in place and return the list with the new
+lengths.
 """
 from __future__ import annotations
 
@@ -43,26 +46,34 @@ from torch.utils.checkpoint import (
 from repro_torch.api import resolve_device
 from repro_torch.dist import ctx as shard_ctx
 
-from .attention import GQA, decode_lengths, gqa_apply, gqa_cache_init
+from . import ssm
+from .attention import (
+    GQA,
+    MLA,
+    decode_lengths,
+    gqa_apply,
+    gqa_cache_init,
+    mla_apply,
+    mla_cache_init,
+)
 from .config import ModelConfig
 from .layers import MLP, Embedding, Head, RMSNorm, embed, head, torch_dtype, unembed
+from .moe import MoE, moe_apply
 
-_NOT_PORTED = {
-    "mla": "ROADMAP §1: the MLA mixer",
-    "mamba": "ROADMAP §1: the SSM mixers",
-    "rwkv6": "ROADMAP §1: the SSM mixers",
-    "moe": "ROADMAP §1: the MoE FFN",
-    "rwkv6_cm": "ROADMAP §1: the SSM mixers",
+# mixer kind -> (module, apply, cache init); the cache inits of the
+# attention mixers take max_len, the recurrent ones do not
+_MIXERS = {
+    "gqa": (GQA, gqa_apply, gqa_cache_init),
+    "mla": (MLA, mla_apply, mla_cache_init),
+    "mamba": (ssm.Mamba, ssm.mamba_apply, ssm.mamba_cache_init),
+    "rwkv6": (ssm.RWKV6TimeMix, ssm.rwkv6_tm_apply, ssm.rwkv6_tm_cache_init),
 }
+_FFNS = ("swiglu", "relu2", "gelu", "moe", "rwkv6_cm", "none")
 
 
 def _check_kinds(kinds: tuple[str, str]) -> None:
-    """A (mixer, ffn) pair the port has; raises for one it has not."""
-    for kind in kinds:
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"block kind {kind!r} is not ported yet ({_NOT_PORTED[kind]})")
-    if kinds[0] != "gqa" or kinds[1] not in ("swiglu", "relu2", "gelu", "none"):
+    """A (mixer, ffn) pair of ``models/config.py``; raises for another."""
+    if kinds[0] not in _MIXERS or kinds[1] not in _FFNS:
         raise ValueError(f"unknown block kinds {kinds}")
 
 
@@ -70,12 +81,17 @@ class Block(nn.Module):
     def __init__(self, kinds: tuple[str, str], cfg: ModelConfig, dtype, device):
         super().__init__()
         _check_kinds(kinds)
-        self.ffn_kind = kinds[1]
+        self.mixer_kind, self.ffn_kind = kinds
         self.norm1 = RMSNorm(cfg.d_model, dtype, device)
-        self.mixer = GQA(cfg, dtype, device)
+        self.mixer = _MIXERS[self.mixer_kind][0](cfg, dtype, device)
         if self.ffn_kind != "none":
             self.norm2 = RMSNorm(cfg.d_model, dtype, device)
-            self.ffn = MLP(self.ffn_kind, cfg.d_model, cfg.d_ff, dtype, device)
+            if self.ffn_kind == "moe":
+                self.ffn = MoE(cfg, dtype, device)
+            elif self.ffn_kind == "rwkv6_cm":
+                self.ffn = ssm.RWKV6ChannelMix(cfg, dtype, device)
+            else:
+                self.ffn = MLP(self.ffn_kind, cfg.d_model, cfg.d_ff, dtype, device)
 
 
 class Model(nn.Module):
@@ -120,12 +136,25 @@ def count_params(cfg: ModelConfig) -> int:
 
 
 def _apply_block(block: Block, x, cfg, positions, cache, causal, decode_len):
-    h = block.norm1(x, cfg.norm_eps)
-    y, new_cache = gqa_apply(block.mixer, h, cfg, positions, cache, causal, decode_len)
+    args = (block.mixer, block.norm1(x, cfg.norm_eps), cfg, positions, cache, causal)
+    if block.mixer_kind == "gqa":
+        y, new_cache = gqa_apply(*args, decode_len)
+    else:
+        y, new_cache = _MIXERS[block.mixer_kind][1](*args)
     x = x + y
-    if block.ffn_kind != "none":
-        x = x + block.ffn(block.norm2(x, cfg.norm_eps))
-    return x, new_cache
+    if block.ffn_kind == "none":
+        return x, new_cache
+    h = block.norm2(x, cfg.norm_eps)
+    if block.ffn_kind == "moe":
+        y = moe_apply(block.ffn, h, cfg)
+    elif block.ffn_kind == "rwkv6_cm":
+        y, ffn_cache = ssm.rwkv6_cm_apply(block.ffn, h, cfg,
+                                          None if cache is None else cache["ffn"])
+        if cache is not None:
+            new_cache["ffn"] = ffn_cache
+    else:
+        y = block.ffn(h)
+    return x + y, new_cache
 
 
 _aten = torch.ops.aten
@@ -174,9 +203,12 @@ def forward(
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     x = shard_ctx.constrain_batch(x)
     decode_len = None
-    if cache is not None and s == 1 and cfg.attn_window == 0:
-        # one [B] length tensor per decode step, shared by every layer
-        decode_len = decode_lengths(positions, cache[0]["len"], causal)
+    gqa_lens = [] if cache is None else [
+        c["len"] for blk, c in zip(params.blocks, cache) if blk.mixer_kind == "gqa"]
+    if gqa_lens and s == 1 and cfg.attn_window == 0:
+        # one [B] length tensor per decode step, shared by every GQA layer
+        # (the first may be a recurrent layer, which keeps no length)
+        decode_len = decode_lengths(positions, gqa_lens[0], causal)
     new_cache = []
     for i, block in enumerate(params.blocks):
         c = None if cache is None else cache[i]
@@ -243,12 +275,25 @@ def lm_loss(params: Model, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 
 
+def _layer_cache(kinds, cfg: ModelConfig, batch: int, max_len: int, dtype, dev) -> dict:
+    mixer_kind, ffn_kind = kinds
+    init = _MIXERS[mixer_kind][2]
+    if mixer_kind in ("gqa", "mla"):
+        cache = init(cfg, batch, max_len, dtype, dev)
+    else:
+        cache = init(cfg, batch, dtype, dev)
+    if ffn_kind == "rwkv6_cm":
+        cache["ffn"] = ssm.rwkv6_cm_cache_init(cfg, batch, dtype, dev)
+    return cache
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> list[dict]:
+    """One cache dict per layer, by the layer's kinds (module docstring)."""
     dev = resolve_device(device)
     for kinds in cfg.layer_pattern:
         _check_kinds(kinds)
     dtype = torch_dtype(cfg.dtype)
-    return [gqa_cache_init(cfg, batch, max_len, dtype, dev) for _ in range(cfg.n_layers)]
+    return [_layer_cache(kinds, cfg, batch, max_len, dtype, dev) for kinds in cfg.layer_pattern]
 
 
 @torch.no_grad()

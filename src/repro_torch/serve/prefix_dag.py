@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import init_cache, prefill
+from repro_torch.tree import tree_map
 
 
 @dataclass
@@ -107,6 +108,10 @@ def plan_batch(prompts: list[np.ndarray], block: int = 16) -> tuple[PrefixDAG, B
     return dag, plan
 
 
+def _clone(leaf):
+    return leaf.clone() if isinstance(leaf, torch.Tensor) else leaf
+
+
 def run_with_prefix_dag(params, cfg, prompts: list[np.ndarray], max_len: int,
                         block: int = 16):
     """Execute a batch with shared-prefix dedup (reference implementation).
@@ -114,8 +119,10 @@ def run_with_prefix_dag(params, cfg, prompts: list[np.ndarray], max_len: int,
     Each unique chain is prefilled once (batch of 1), on the model's device.
     The reference then shares the chain's immutable cache with every
     request of its group; here a prefill writes the tail into its cache in
-    place, so each request gets its own copy of the chain's cache, and the
-    chain's own stays as it was.  Per-request tails are prefilled
+    place, so each request gets its own copy of the chain's cache (every
+    tensor leaf: KV rows, latents, recurrent states), and the chain's own
+    stays as it was; a recurrent state after the chain is the state the
+    tail continues from.  Per-request tails are prefilled
     individually.  Returns (last_logits [N, V], per-request caches, plan).
     """
     dev = params.embed.table.device
@@ -134,8 +141,7 @@ def run_with_prefix_dag(params, cfg, prompts: list[np.ndarray], max_len: int,
     for blk, members in plan.groups.items():
         chain_len = len(dag.chain_tokens(blk))
         for i in members:
-            cache = [{"k": c["k"].clone(), "v": c["v"].clone(), "len": c["len"]}
-                     for c in chain_cache[blk]]
+            cache = tree_map(_clone, chain_cache[blk])
             tail = plan.tails[i]
             logits, cache = prefill(
                 params, cfg, torch.as_tensor(tail[None].astype(np.int32), device=dev),

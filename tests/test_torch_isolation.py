@@ -23,6 +23,7 @@ for name in names:
 loaded = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not loaded, loaded
 assert sys.modules.get("jax") is None
+assert {"repro_torch.models.moe", "repro_torch.models.ssm"} <= set(names), names
 print(len(names), sum(n.startswith("repro_torch.cluster") for n in names))
 """
 
@@ -35,7 +36,7 @@ def test_every_port_module_imports_without_jax_or_reference():
     )
     assert proc.returncode == 0, proc.stderr
     visited, cluster = (int(x) for x in proc.stdout.split()[-2:])
-    assert visited >= 91  # every module was visited (dist, roofline, mesh, train among them)
+    assert visited >= 93  # every module was visited (dist, roofline, mesh, train, moe, ssm among them)
     assert cluster >= 15  # repro_torch.cluster and its 14 modules among them
 
 

@@ -238,10 +238,19 @@ def test_lm_loss_equals_reference(arch, masked):
 # --------------------------------------------------------------------------- #
 
 
-def test_unported_arch_raises():
-    """rwkv6's reduced config keeps its RWKV-6 mixer (ROADMAP §1 item 10)."""
-    with pytest.raises(NotImplementedError, match="SSM"):
-        init_params(0, get_config("rwkv6-1.6b").reduced(), "cpu")
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "jamba-1.5-large-398b",
+                                  "llama4-maverick-400b-a17b", "rwkv6-1.6b"])
+def test_param_count_with_the_kinds_kept_matches_the_reference(arch):
+    """``reduced()`` resets ``layer_pattern``, so MoE and MLA archs reduce to
+    GQA; with the pattern kept (test_torch_blocks.PATTERNS) the port's
+    MoE, MLA, Mamba and RWKV-6 blocks count the reference's parameters, and
+    the model built from a seed has that many."""
+    from test_torch_blocks import configs
+
+    jcfg, cfg = configs(arch)
+    assert cfg.param_count() == jcfg.param_count()
+    model = init_params(0, cfg, "cpu")
+    assert sum(p.numel() for p in model.parameters()) == jcfg.param_count()
 
 
 # --------------------------------------------------------------------------- #

@@ -8,8 +8,9 @@ vision frontend).  Every GQA arch runs with AdamW on one batch and with
 Adafactor on two microbatches (SmolLM also with the other two pairs);
 deepseek-v2-lite, whose reduced config is 54 layers (a scan unit of 27
 stacked twice, the heaviest reference compile of the registry), runs the
-Adafactor case only.  rwkv6's reduced config keeps its RWKV-6 mixer, which
-the port does not have yet (``test_torch_train.py::test_unported_arch_raises``).
+Adafactor case only.  rwkv6's reduced config keeps its RWKV-6 mixer; it and
+the MoE, MLA and Mamba archs with their kinds kept are in
+``test_torch_arch_steps.py``.
 
 Tolerances:
   * float32: loss, grad_norm and lr within 1e-5 relative, every parameter
