@@ -56,7 +56,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      allocation and pointers, the entry lookup, the device guard, the stream
      lookup, and the entry call beside a ``ctypes`` call of the same C
      function in the same library (timed in turns), beside the whole call
-     (and ``torch.searchsorted``, in turns);
+     (and ``torch.searchsorted``, in turns); for ``searchsorted``, a
+     registered op, the whole call beside the direct launch (the wrapper
+     before the op);
   8. the distributed search (``repro_torch.dist.search_shard``) on the
      same corpus: the nine queries' tree-index lists, packed once and
      handed to ranks spawned by ``torch.multiprocessing``: (a) one rank a
@@ -117,7 +119,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      and on every call the two runs made (and two kernel calls bit for bit
      equal), with one pass of those calls timed beside
      ``scaled_dot_product_attention`` (CUDA events and profiler device
-     time) and the host breakdown of one call; last, one profiled serving
+     time) and the host breakdown of one call (the registered op beside
+     the direct launch, as searchsorted's); last, one profiled serving
      run of 8 decode steps (device busy and idle share);
   12. LM training (``train_phase``): (a) SmolLM-135M at its published
      widths in bf16 through ``repro_torch.launch.train``'s pieces (AdamW,
@@ -164,19 +167,42 @@ Phases (any failure exits non-zero, and no result line is printed):
      top-1 router gets no gradient in exact arithmetic: its moments are
      held to be float noise).  Each model is freed before the next is
      built;
-  14. a ``{"kernels": [...]}`` line with all five kernels (searchsorted's
+  14. the dry-run (``dryrun_phase``): (a) ``python -m
+     repro_torch.launch.dryrun --arch smollm-135m --shape decode_32k`` with
+     its accounting, then ``--search``, each in a subprocess (fake tensors
+     over a fake group of 256 ranks; the card is not used): each record's
+     ok, mesh, chips, memory, costs and roofline terms, the
+     ``repro_torch::decode_attention`` calls in the op table (30, one a
+     layer) and the host seconds of the trace; (b) SmolLM-135M at this
+     script's sizes in bf16 from seed 0, a prefill of 8 x 1,024, one decode
+     step against a full cache of 1,088 and one AdamW train step on 8 x
+     1,024: each step's one-device trace (``dryrun.lower_step``) beside the
+     same step on the card under ``FlopCounterMode`` after
+     ``reset_peak_memory_stats``: the FLOPs equal, the predicted bytes above
+     the arguments within 2% of the measured peak above what was allocated
+     before the step, and the step's CUDA-event ms beside the trace's
+     roofline bound (FLOPs over the bf16 peak, the byte proxy over the HBM
+     rate) and its share of it; each step traced on fake ``cpu`` tensors
+     too (the trace a host without CUDA makes) with the same costs and
+     memory; the decode step's 30 decode_attention launches each held
+     against plain; (b') a reduced train step on a fake (4, 1) mesh traced
+     on fake ``cuda`` and fake ``cpu`` tensors: the same costs;
+  15. a ``{"kernels": [...]}`` line with all five kernels (searchsorted's
      with ``dist_launches`` per run and rank and ``dist_max_abs_err``,
      folded into ``max_abs_err``; decode_attention's launches summed over
-     the SmolLM and llama4 runs, each also apart), the nvidia-smi line, and
-     as the last line ``{"ok": true, "device": {...}}``.
+     the SmolLM, llama4 and dry-run decode steps, each also apart), the
+     nvidia-smi line, and as the last line ``{"ok": true, "device":
+     {...}}``.
 
 Profiler device times are reported only from a pass in which the profiler
 recorded every launch the pass made (``expected_launches``), else as not
 measured.  Per-call details go to ``OUT_DIR``: ``chip_smoke_rounds.json``
 (search), ``chip_smoke_dist.json`` (distributed search),
 ``chip_smoke_cluster.json`` (cluster), ``chip_smoke_gateway.json`` (gateway),
-``chip_smoke_lm.json`` (LM), ``chip_smoke_train.json`` (training) and
-``chip_smoke_blocks.json`` (the MoE, MLA, Mamba and RWKV-6 archs).
+``chip_smoke_lm.json`` (LM), ``chip_smoke_train.json`` (training),
+``chip_smoke_blocks.json`` (the MoE, MLA, Mamba and RWKV-6 archs) and
+``chip_smoke_dryrun.json`` (the dry-run, beside the CLI's own records
+``dryrun_decode_32k.json`` and ``dryrun_search.json``).
 """
 from __future__ import annotations
 
@@ -1121,10 +1147,9 @@ def host_breakdown(label: str, entry, index: int, args, parts: dict,
 
 def searchsorted_breakdown(a, q) -> dict:
     """``host_breakdown`` of one ``searchsorted`` call on these inputs, beside
-    ``torch.searchsorted``."""
+    ``torch.searchsorted``; the whole call (the registered op) beside the
+    direct launch."""
     import torch
-
-    from repro_torch.kernels import _build
 
     ss = module("searchsorted")
     rows, m = a.shape
@@ -1133,10 +1158,11 @@ def searchsorted_breakdown(a, q) -> dict:
     rec = {"shapes": [list(a.shape), list(q.shape)]}
     rec.update(host_breakdown(
         f"searchsorted at {rec['shapes']}", ss._LAUNCH, a.device.index, args,
-        {"checks": lambda: _build.int32_device(a, q),
+        {"checks": lambda: ss._check(a, q),
          "allocation": lambda: torch.empty_like(q),
          "pointers": lambda: (a.data_ptr(), q.data_ptr(), out.data_ptr())},
         {"whole_call_us": lambda: ss.searchsorted(a, q),
+         "direct_launch_us": lambda: ss._launch(a, q),
          "torch_searchsorted_us": lambda: torch.searchsorted(a, q)}))
     return rec
 
@@ -2742,7 +2768,8 @@ class DecodeRecorder:
 
 
 def decode_breakdown(q, k, v, cache_len) -> dict:
-    """``host_breakdown`` of one ``decode_attention`` call on these inputs."""
+    """``host_breakdown`` of one ``decode_attention`` call on these inputs;
+    the whole call (the registered op) beside the direct launch."""
     import torch
 
     da = module("decode_attention")
@@ -2763,7 +2790,8 @@ def decode_breakdown(q, k, v, cache_len) -> dict:
              splits * b * h * (hd + 2), dtype=torch.float32, device=q.device)),
          "pointers": lambda: (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               cache_len.data_ptr(), out.data_ptr(), part.data_ptr())},
-        {"whole_call_us": lambda: da.decode_attention(q, k, v, cache_len)}))
+        {"whole_call_us": lambda: da.decode_attention(q, k, v, cache_len),
+         "direct_launch_us": lambda: da._launch(q, k, v, cache_len)}))
     return rec
 
 
@@ -3853,6 +3881,224 @@ def blocks_phase(card: str) -> dict:
     return llama4
 
 
+# --------------------------------------------------------------------------- #
+# Phase 14: the dry-run, and its predictions held against real steps
+# --------------------------------------------------------------------------- #
+
+DRYRUN_TIMEOUT_S = 240  # each CLI run (host time: imports, mesh, traces)
+# predicted bytes above the arguments against measured: the runs in PERF.md
+# read 0.0000-0.0013; the room is the caching allocator's rounding
+DRYRUN_MEMORY_TOL = 0.02
+DRYRUN_STEPS = {  # (b): chip_smoke's own sizes, as extra cells of the registry
+    "smoke_prefill": ("prefill", LM_PROMPT),  # 8 x 1,024 prompt tokens
+    "smoke_decode": ("decode", LM_PROMPT + LM_GEN),  # a full cache of 1,088
+    "smoke_train": ("train", LM_PROMPT),  # one AdamW step on 8 x 1,024
+}
+DRYRUN_MESH_CELL = ("smoke_mesh_train", "train", 64, 16)  # (name, kind, seq, batch)
+DRYRUN_MESH = (4, 1)  # data-parallel: torch 2.11's DTensor refuses this step on (2, 2)
+DRYRUN_MESH_DEVICES = ("cuda", "cpu")  # the fake tensors' devices held equal in (b')
+
+
+def dryrun_cli(args: list, out: Path) -> list[dict]:
+    """One run of ``python -m repro_torch.launch.dryrun`` (fake tensors over a
+    fake group of 256 ranks; no card is used) writing ``out``; raises unless
+    it exits 0."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                           "--out", str(out)], capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=DRYRUN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun {args} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    for line in proc.stdout.splitlines():
+        if line.startswith(("[dryrun]", "         roofline")):
+            print(f"dryrun (a): {line.strip()}")
+    print(f"dryrun (a): {' '.join(args)}: {wall:.1f} s host wall")
+    with open(out) as f:
+        return json.load(f)
+
+
+def step_on_card(kind: str, model, cfg, seq: int) -> tuple:
+    """(step function, its arguments) of one ``kind`` step of ``cfg`` on the
+    card at chip_smoke's batch: the step the dry-run traces for such a cell
+    (``launch/dryrun.py::_build_step``), on real tensors."""
+    import torch
+
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.train.train_step import make_train_step
+
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(LM_REQUESTS, seq),
+                                           dtype=np.int32)).to(DEVICE)
+    if kind == "train":
+        init_state, train_step = make_train_step(cfg, optimizer="adamw")
+        return train_step, (init_state(model), {"tokens": tokens})
+    cache = init_cache(cfg, LM_REQUESTS, seq, DEVICE)
+    if kind == "prefill":
+        def fn(params, tokens, cache):
+            for layer in cache:  # each run fills the cache from its start
+                layer["len"] = 0
+            return prefill(params, cfg, tokens, cache)
+
+        return fn, (model, tokens, cache)
+    for layer in cache:
+        layer["len"] = seq - 1
+
+    def fn(params, token, cache):
+        return decode_step(params, cfg, token, cache, seq - 1)
+
+    return fn, (model, tokens[:, :1].contiguous(), cache)
+
+
+def measure_step(fn, args) -> dict:
+    """FLOPs (``FlopCounterMode``), the peak of allocated bytes above what was
+    allocated before the step, and the median CUDA-event ms of the step."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    fn(*args)  # warm: cuBLAS handles and workspaces exist before the count
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with FlopCounterMode(display=False) as fc:
+        out = fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return {"flops": fc.get_total_flops(), "temp_bytes": peak,
+            "ms": cuda_ms(lambda: fn(*args))}
+
+
+def dryrun_phase(card: str) -> dict:
+    """The dry-run on the card host (module docstring, phase 14); returns the
+    decode step's decode_attention calls, checked."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import get_config, registry
+    from repro_torch.launch import dryrun
+    from repro_torch.models import init_params
+    from repro_torch.roofline.analysis import HW
+
+    da = module("decode_attention")
+    record = {"card": card}
+    OUT_DIR.mkdir(exist_ok=True)
+    # (a) the CLI at full width: a decode cell with its accounting, and the
+    # search, the two processes at once
+    with ThreadPoolExecutor(2) as pool:
+        cell = pool.submit(dryrun_cli, ["--arch", LM_ARCH, "--shape", "decode_32k"],
+                           OUT_DIR / "dryrun_decode_32k.json")
+        searched = pool.submit(dryrun_cli, ["--search"], OUT_DIR / "dryrun_search.json")
+        (rec,), (search,) = cell.result(), searched.result()
+    calls = rec["ops"].get("repro_torch.decode_attention", {}).get("calls", 0)
+    r = rec["roofline"]
+    print(f"dryrun (a): {LM_ARCH} x decode_32k ok {rec['ok']} mesh {rec['mesh']} chips "
+          f"{rec['chips']} device {rec['device']}; per device: memory {rec['memory']}; "
+          f"flops {rec['trace_costs']['flops']:.6g} bytes {rec['trace_costs']['bytes']:.6g} "
+          f"collective {rec['trace_costs']['collectives']}; roofline compute "
+          f"{r['compute_s'] * 1e3:.4f} ms memory {r['memory_s'] * 1e3:.4f} ms collective "
+          f"{r['collective_s'] * 1e3:.4f} ms -> {r['bottleneck']}; "
+          f"repro_torch::decode_attention calls {calls}; trace_s {rec['trace_s']} (host)")
+    if not (rec["ok"] and rec["mesh"] == "16x16" and rec["chips"] == 256 and calls == 30
+            and rec["memory"]["argument_bytes"] > 0):
+        raise AssertionError(f"dry-run decode_32k record off: {calls} decode_attention "
+                             f"calls, {rec['mesh']}, {rec['chips']}")
+    print(f"dryrun (a): search ok {search['ok']} mesh {search['mesh']} chips "
+          f"{search['chips']}; collective {search['trace_costs']['collectives']}; "
+          f"searchsorted calls {search['ops'].get('repro_torch.searchsorted', {}).get('calls')}; "
+          f"trace_s {search['trace_s']} (host)")
+    if not search["ok"]:
+        raise AssertionError("dry-run search record not ok")
+    record["cli"] = {"decode_32k": {k: v for k, v in rec.items() if k != "ops"},
+                     "decode_attention_calls": calls,
+                     "search": {k: v for k, v in search.items() if k != "ops"}}
+
+    # (b) the one-device trace of each step beside the same step on the card
+    cfg = get_config(LM_ARCH)
+    for name, (kind, seq) in DRYRUN_STEPS.items():
+        registry.SHAPES[name] = registry.ShapeCell(name, seq, LM_REQUESTS, kind)
+    model = init_params(0, cfg, DEVICE)
+    steps, decode_calls = {}, []
+    for name, (kind, seq) in DRYRUN_STEPS.items():
+        trace = dryrun.lower_step(cfg, name, None, 1)
+        fn, args = step_on_card(kind, model, cfg, seq)
+        if kind == "decode":
+            launches = da.LAUNCHES
+            with DecodeRecorder() as rec_calls:
+                fn(*args)
+            torch.cuda.synchronize()
+            decode_calls = [a for _, a in rec_calls.calls]
+            step_launches = da.LAUNCHES - launches
+        got = measure_step(fn, args)
+        del fn, args
+        torch.cuda.empty_cache()
+        bound_s = max(trace.costs["flops"] / HW["peak_flops"], trace.costs["bytes"] / HW["hbm_bw"])
+        pred = trace.memory["temp_bytes"]
+        err = abs(pred - got["temp_bytes"]) / max(got["temp_bytes"], 1)
+        row = {"kind": kind, "seq": seq, "trace_s": trace.trace_s, "trace_costs": trace.costs,
+               "memory": trace.memory, "measured": got, "memory_rel_err": err,
+               "bound_ms": bound_s * 1e3,
+               "bound_by": ("operations" if trace.costs["flops"] / HW["peak_flops"]
+                            >= trace.costs["bytes"] / HW["hbm_bw"] else "bytes"),
+               "share_of_bound": bound_s * 1e3 / got["ms"]}
+        # a host whose PyTorch has no CUDA traces on fake cpu tensors
+        cpu = dryrun.lower_step(cfg, name, None, 1, device="cpu")
+        row["cpu_trace_costs"], row["cpu_memory"] = cpu.costs, cpu.memory
+        if (cpu.costs, cpu.memory) != (trace.costs, trace.memory):
+            raise AssertionError(f"{kind} trace on fake cpu {cpu.costs} {cpu.memory} != on "
+                                 f"fake cuda {trace.costs} {trace.memory}")
+        steps[name] = row
+        print(f"dryrun (b): {LM_ARCH} {kind} {LM_REQUESTS} x {seq}: traced flops "
+              f"{trace.costs['flops']:.6g} == card {got['flops']:.6g}; temp bytes above the "
+              f"arguments predicted {pred} measured {got['temp_bytes']} (rel err {err:.4f}, "
+              f"limit {DRYRUN_MEMORY_TOL}); traced bytes {trace.costs['bytes']:.6g}; step "
+              f"{got['ms']:.4f} ms (CUDA events, median of {TIMING_REPS}) against the "
+              f"roofline bound {bound_s * 1e3:.4f} ms ({row['bound_by']}): "
+              f"{row['share_of_bound']:.4f} of it; trace {trace.trace_s:.2f} s (host); {card}")
+        if got["flops"] != trace.costs["flops"]:
+            raise AssertionError(f"{kind}: traced flops {trace.costs['flops']} != card "
+                                 f"{got['flops']}")
+        if not err <= DRYRUN_MEMORY_TOL:
+            raise AssertionError(f"{kind}: predicted temp bytes {pred} against measured "
+                                 f"{got['temp_bytes']}: {err:.3f} > {DRYRUN_MEMORY_TOL}")
+    checked = [check_decode(a, "bfloat16") for a in decode_calls]
+    if step_launches != 30 or len(checked) != 30:
+        raise AssertionError(f"the decode step launched decode_attention {step_launches} "
+                             f"times over {len(checked)} calls, not 30")
+    decode = {"launches": step_launches,
+              "max_abs_err": max(r["max_abs_err"] for r in checked)}
+    print(f"dryrun (b): the decode step's {step_launches} decode_attention launches each "
+          f"== plain (max abs err {decode['max_abs_err']:.3g}, limit "
+          f"{KERNEL_TOL['bfloat16']})")
+    del model, decode_calls, checked
+    torch.cuda.empty_cache()
+
+    # (b') a train cell on a fake mesh: traced on fake cuda == on fake cpu
+    name, kind, seq, batch = DRYRUN_MESH_CELL
+    registry.SHAPES[name] = registry.ShapeCell(name, seq, batch, kind)
+    dryrun.fake_group(4)
+    try:
+        costs = {dev: dryrun.lower_step(cfg.reduced(), name, DeviceMesh(
+            dev, torch.arange(4).reshape(DRYRUN_MESH), mesh_dim_names=("data", "model")), 1,
+            device=dev).costs for dev in DRYRUN_MESH_DEVICES}
+    finally:
+        dist.destroy_process_group()
+    first, second = (costs[d] for d in DRYRUN_MESH_DEVICES)
+    print(f"dryrun (b'): reduced {LM_ARCH} train {batch} x {seq} on a fake {DRYRUN_MESH} mesh: "
+          f"fake {DRYRUN_MESH_DEVICES[0]} {first['flops']:.6g} flops {first['bytes']:.6g} "
+          f"bytes {first['collectives']}; fake {DRYRUN_MESH_DEVICES[1]} the same: "
+          f"{first == second}")
+    if first != second:
+        raise AssertionError(f"mesh trace on fake {DRYRUN_MESH_DEVICES}: {first} != {second}")
+    record.update(steps=steps, decode=decode, mesh_train=costs)
+    with open(OUT_DIR / "chip_smoke_dryrun.json", "w") as f:
+        json.dump(record, f, indent=1)
+    return decode
+
+
 def main() -> int:
     # cuBLAS reads this once, at its first handle: the training phase runs
     # with deterministic algorithms, which need it
@@ -3917,11 +4163,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     llama4 = blocks_phase(card)
     print(f"blocks phase done at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    dry = dryrun_phase(card)
+    print(f"dryrun phase done at {time.perf_counter() - t_start:.1f} s")
     decode_line = lines[-1]
     decode_line["lm_launches"] = decode_line["launches"]
     decode_line["llama4_launches"] = llama4["launches"]
-    decode_line["launches"] += llama4["launches"]
-    decode_line["max_abs_err"] = max(decode_line["max_abs_err"], llama4["max_abs_err"])
+    decode_line["dryrun_launches"] = dry["launches"]
+    decode_line["launches"] += llama4["launches"] + dry["launches"]
+    decode_line["max_abs_err"] = max(decode_line["max_abs_err"], llama4["max_abs_err"],
+                                     dry["max_abs_err"])
     decode_line["llama4"] = llama4
 
     # ---- result lines --------------------------------------------------- #

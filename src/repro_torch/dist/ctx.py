@@ -2,7 +2,8 @@
 
 Model forward passes call :func:`constrain_batch` / :func:`constrain_vocab`
 / :func:`constrain_heads` (and the MoE's :func:`moe_groups` /
-:func:`constrain_groups` / :func:`constrain_experts`) unconditionally;
+:func:`constrain_groups` / :func:`constrain_experts`, the train step's
+:func:`replicate`) unconditionally;
 with no active context they are the identity, so single-device paths pay
 nothing and stay mesh-free.  Inside
 ``with ctx.use(mesh):`` the same calls redistribute a DTensor to the (data,
@@ -62,9 +63,15 @@ class ShardCtx:
         return {}
 
     def constrain_batch(self, x):
-        """Pin axis 0 (batch) over the data dims; the rest replicated."""
+        """Pin axis 0 (batch) over the data dims; the rest replicated.  A
+        batch the data dims do not divide stays as it is, unless a pending
+        sum (``Partial``) is on it: that is reduced here, once (a
+        vocabulary-sharded embedding's masked sum can be reduced only once,
+        and every consumer of an unreduced one would reduce it again)."""
         entries = self._batch(x)
-        return self._constrain(x, entries) if entries else x
+        if entries or (isinstance(x, DTensor) and any(p.is_partial() for p in x.placements)):
+            return self._constrain(x, entries)
+        return x
 
     def constrain_vocab(self, x):
         """Pin the trailing (vocab) axis over "model"; batch over data."""
@@ -85,6 +92,11 @@ class ShardCtx:
         more, else one."""
         g = self.dp_size()
         return g if g > 1 and t % g == 0 and t // g >= num_experts else 1
+
+    def replicate(self, x):
+        """The whole of ``x`` on every rank: what is sharded is gathered,
+        what is pending is reduced."""
+        return self._constrain(x, {})
 
     def constrain_groups(self, x):
         """Pin axis 0 (the MoE's token groups) over the data dims, the rest
@@ -143,6 +155,11 @@ def constrain_heads(x):
 def moe_groups(t: int, num_experts: int) -> int:
     sctx = current()
     return 1 if sctx is None else sctx.moe_groups(t, num_experts)
+
+
+def replicate(x):
+    sctx = current()
+    return x if sctx is None else sctx.replicate(x)
 
 
 def constrain_groups(x):

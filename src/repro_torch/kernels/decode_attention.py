@@ -18,7 +18,19 @@ with ``ValueError``).  For CPU tensors it runs
 :func:`decode_attention_plain`, the same function in plain PyTorch.  There
 is no fallback between the two: a CUDA tensor reaches the kernel or raises.
 
-``LAUNCHES`` counts wrapper calls that launched the kernel (one per call,
+The function is the registered op ``repro_torch::decode_attention``
+(``torch.ops.repro_torch.decode_attention``): its CUDA implementation is
+the launch (:func:`_launch`), its CPU implementation the plain version, and
+its fake implementation gives the output's shape and dtype and touches no
+pointer, so the dry-run (``launch/dryrun.py``) traces it on fake tensors
+as the card would run it.  Its FLOP formula (for
+``torch.utils.flop_counter``) is ``4 * B * H * T * hd``, T the cache's
+allocated length; on DTensors it runs where the batch is sharded (each
+piece on its own rows) or the heads (q's heads with their KV heads).
+Each implementation checks the tensors it is given (:func:`_check`):
+under DTensor those are a rank's local pieces.
+
+``LAUNCHES`` counts op calls that launched the kernel (one per call,
 whether it made one launch or two; plain-version calls do not count).
 """
 from __future__ import annotations
@@ -27,6 +39,9 @@ import functools
 import math
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
+from torch.utils.flop_counter import register_flop_formula
 
 from ._build import CSRC, Entry
 
@@ -91,8 +106,8 @@ def decode_attention_plain(q, k, v, cache_len) -> torch.Tensor:
     return out.reshape(b, h, hd).to(q.dtype)
 
 
-def _check(q, k, v, cache_len) -> torch.device:
-    """What the kernel takes, as plain attribute compares; returns the device."""
+def _check(q, k, v, cache_len) -> None:
+    """What the kernel takes, as plain attribute compares."""
     qs, ks = q.shape, k.shape
     if len(qs) != 3 or len(ks) != 4 or v.shape != ks:
         raise ValueError(
@@ -119,12 +134,67 @@ def _check(q, k, v, cache_len) -> torch.device:
         name, x = next((n, x) for n, x in (("k", k), ("v", v), ("cache_len", cache_len))
                        if x.device != dev)
         raise ValueError(f"{name} is on {x.device}, q on {dev}")
-    if dev.type != "cuda" and dev.type != "cpu":
-        raise ValueError(f"the kernels run on cpu or cuda, not {dev}")
-    if dev.type == "cuda" and (k.data_ptr() % 16 or v.data_ptr() % 16):
+
+
+def _launch(q, k, v, cache_len) -> torch.Tensor:
+    """The op's CUDA implementation: the kernel on the current stream,
+    without synchronising."""
+    global LAUNCHES
+    _check(q, k, v, cache_len)
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("k and v must start on a 16-byte boundary (the kernel copies "
                          "them in 16-byte pieces)")
-    return dev
+    b, h, hd = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    chunk, splits = split_plan(b, hk, h // hk, t)
+    out = torch.empty_like(q)
+    # float32 partials: acc [S, B*H, hd], then (m, l) [S, B*H, 2]
+    part = (torch.empty(splits * b * h * (hd + 2), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
+    _LAUNCH[q.dtype](q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     cache_len.data_ptr(), b, t, h, hk, hd, 1.0 / math.sqrt(hd), chunk,
+                     splits, out.data_ptr(), 0 if part is None else part.data_ptr())
+    LAUNCHES += 1
+    return out
+
+
+def _plain(q, k, v, cache_len) -> torch.Tensor:
+    """The op's CPU implementation."""
+    _check(q, k, v, cache_len)
+    return decode_attention_plain(q, k, v, cache_len)
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("decode_attention(Tensor q, Tensor k, Tensor v, Tensor cache_len) -> Tensor")
+_LIB.impl("decode_attention", _launch, "CUDA")
+_LIB.impl("decode_attention", _plain, "CPU")
+
+
+@torch.library.register_fake("repro_torch::decode_attention", lib=_LIB)
+def _fake(q, k, v, cache_len):
+    _check(q, k, v, cache_len)
+    return torch.empty_like(q)
+
+
+OP = torch.ops.repro_torch.decode_attention.default
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention)
+def _flops(q_shape, k_shape, *args, **kwargs) -> int:
+    """Two products of hd per (row, head, position): q.k and p.v."""
+    b, h, hd = q_shape
+    return 4 * b * h * k_shape[1] * hd
+
+
+@register_sharding(OP)
+def _sharding(q, k, v, cache_len):
+    """Placements per mesh dim, (out, (q, k, v, cache_len)): whole, rows
+    split, or heads split where every mesh dim divides the KV heads (so
+    each piece of q's heads meets its own KV heads)."""
+    out = [([Replicate()], [Replicate()] * 4), ([Shard(0)], [Shard(0)] * 4)]
+    if all(k.shape[2] % n == 0 for n in k.mesh.shape):
+        out.append(([Shard(1)], [Shard(1), Shard(2), Shard(2), Replicate()]))
+    return out
 
 
 def decode_attention(q, k, v, cache_len) -> torch.Tensor:
@@ -134,19 +204,4 @@ def decode_attention(q, k, v, cache_len) -> torch.Tensor:
     CPU tensors take the plain version; CUDA tensors launch the kernel on
     the current stream, without synchronising.
     """
-    global LAUNCHES
-    dev = _check(q, k, v, cache_len)
-    if dev.type == "cpu":
-        return decode_attention_plain(q, k, v, cache_len)
-    b, h, hd = q.shape
-    t, hk = k.shape[1], k.shape[2]
-    chunk, splits = split_plan(b, hk, h // hk, t)
-    out = torch.empty_like(q)
-    # float32 partials: acc [S, B*H, hd], then (m, l) [S, B*H, 2]
-    part = (torch.empty(splits * b * h * (hd + 2), dtype=torch.float32, device=dev)
-            if splits > 1 else None)
-    _LAUNCH[q.dtype](dev.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), cache_len.data_ptr(),
-                     b, t, h, hk, hd, 1.0 / math.sqrt(hd), chunk, splits,
-                     out.data_ptr(), 0 if part is None else part.data_ptr())
-    LAUNCHES += 1
-    return out
+    return OP(q, k, v, cache_len)

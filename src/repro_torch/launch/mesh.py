@@ -1,14 +1,17 @@
-"""Meshes of ranks for the distributed search.
+"""Meshes of ranks: the production meshes and a mesh over the ranks at hand.
 
-``make_host_mesh`` is a function (never a module constant), so importing
-this module touches no device and no process group.  The caller starts the
-process group itself (``torch.distributed.init_process_group`` with its
-address, world size and rank) and chooses its backend: ``"nccl"`` when every
-rank has a card of its own, ``"gloo"`` when ranks share a card or run on the
-CPU.  NCCL refuses two ranks on one card.
+Single pod:  (16, 16)      dims ("data", "model")         — 256 ranks
+Multi-pod:   (2, 16, 16)   dims ("pod", "data", "model")  — 512 ranks
 
-The reference's ``make_production_mesh`` (its 256- and 512-chip TPU
-meshes) is not ported yet: it belongs to the dry-run.
+``make_production_mesh`` and ``make_host_mesh`` are functions (never module
+constants), so importing this module touches no device and no process
+group.  The caller starts the process group itself
+(``torch.distributed.init_process_group`` with its address, world size and
+rank) and chooses its backend: ``"nccl"`` when every rank has a card of its
+own, ``"gloo"`` when ranks share a card or run on the CPU (NCCL refuses two
+ranks on one card).  The dry-run (``launch/dryrun.py``) starts torch's
+``"fake"`` backend with 256 or 512 ranks, which runs no collective, and
+builds the production meshes over it.
 """
 from __future__ import annotations
 
@@ -30,6 +33,20 @@ def rank_device(device_type: str = "cuda") -> torch.device:
         return torch.device("cpu")
     local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
     return torch.device("cuda", local % torch.cuda.device_count())
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda") -> DeviceMesh:
+    """The (16, 16) ("data", "model") mesh, or (2, 16, 16) ("pod", "data",
+    "model") with ``multi_pod``, over the default process group, which must
+    hold that many ranks.  Touches no device: the dry-run builds it over a
+    fake group on a host without a card."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 512 if multi_pod else 256
+    if dist.get_world_size() != n:
+        raise ValueError(f"the production mesh {shape} needs {n} ranks, "
+                         f"the process group has {dist.get_world_size()}")
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=names)
 
 
 def make_host_mesh(model: int = 1, *, device_type: str = "cuda") -> DeviceMesh:

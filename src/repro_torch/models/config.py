@@ -142,7 +142,12 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Exact parameter count of the port's model, built on the ``meta``
-        device (no allocation)."""
-        from repro_torch.models.model import count_params
+        device (no allocation); drives MODEL_FLOPS in the roofline."""
+        from repro_torch.models.model import count_params_analytic
 
-        return count_params(self)
+        return count_params_analytic(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.model import count_params_analytic
+
+        return count_params_analytic(self, active_only=True)

@@ -125,9 +125,21 @@ def init_params(seed: int, cfg: ModelConfig, device="cuda") -> Model:
     return model.eval()
 
 
-def count_params(cfg: ModelConfig) -> int:
-    """Exact parameter count, from the model built on the ``meta`` device."""
-    return sum(p.numel() for p in Model(cfg, "meta").parameters())
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Exact parameter count, from the model built on the ``meta`` device
+    (no allocation).
+
+    active_only: MoE experts counted as top_k (+shared) per layer instead of
+    all experts — the N in MODEL_FLOPS = 6·N_active·D (the reference's rule).
+    """
+    total = sum(p.numel() for p in Model(cfg, "meta").parameters())
+    if not active_only or cfg.moe is None:
+        return total
+    m = cfg.moe
+    expert_params = 3 * cfg.d_model * m.d_ff_expert  # gate/up/down per expert
+    n_moe_layers = sum(1 for _, f in cfg.layer_pattern if f == "moe")
+    inactive = (m.num_experts - m.top_k) * expert_params * n_moe_layers
+    return total - inactive
 
 
 # --------------------------------------------------------------------------- #
@@ -196,7 +208,9 @@ def forward(
     if embeddings is not None:
         parts.append(embeddings)
     if tokens is not None:
-        parts.append(embed(params.embed.table, tokens))
+        # pinned before the join: under a mesh the embedding of a
+        # vocabulary-sharded table is a pending masked sum
+        parts.append(shard_ctx.constrain_batch(embed(params.embed.table, tokens)))
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     b, s, _ = x.shape
     if positions is None:

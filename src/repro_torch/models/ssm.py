@@ -29,6 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist import ctx as shard_ctx
+
 from .config import ModelConfig, SSMConfig
 from .layers import RMSNorm, _param, dense_init
 
@@ -232,7 +234,9 @@ def rwkv6_tm_apply(params: RWKV6TimeMix, x, cfg: ModelConfig, positions=None, ca
     # ddlerp: data-dependent interpolation weights per stream
     xx = x + dx * params.mu_x
     lora = torch.tanh(torch.einsum("bsd,df->bsf", xx, params.lora_a))
-    lora = lora.reshape(b, s, 5, _MIX_DIM)
+    # whole on "model" before the split into streams (DTensor cannot split a
+    # dim sharded over the mesh unevenly into two)
+    lora = shard_ctx.constrain_groups(lora).reshape(b, s, 5, _MIX_DIM)
     dyn = torch.einsum("bsfm,fmd->bsfd", lora, params.lora_b)  # [B,S,5,D]
     mixed = x[:, :, None, :] + dx[:, :, None, :] * (params.mu[None, None] + dyn)
     xr, xk, xv, xw, xg = mixed.unbind(dim=2)

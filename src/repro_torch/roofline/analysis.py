@@ -1,4 +1,4 @@
-"""Roofline terms on the H100: the card's peaks and a search round's global-memory accesses.
+"""Roofline terms on the H100: the card's peaks, a traced step's roofline and a search round's global-memory accesses.
 
 ``HW`` holds the peaks of one NVIDIA H100 SXM from NVIDIA's data sheet
 (dense rates, no sparsity, at the full 700 W power limit).  They are
@@ -15,10 +15,23 @@ same rows.  An access counts whether the L2 cache or HBM serves it, so the
 count is not the DRAM traffic and its time at the HBM rate is not a lower
 bound on the round.
 
-The HLO-reading part of the reference's module (``analyze``,
-``RooflineReport``, ``collective_bytes_from_hlo``, ``model_flops_for``) is
-not ported yet: it reads compiled HLO, which PyTorch's eager kernels do not
-produce.
+Per (arch × shape × mesh), from the dry-run's trace (``launch/dryrun.py``;
+all per device):
+  compute    = traced FLOPs / HW["peak_flops"]        [bf16 dense peak]
+  memory     = traced bytes / HW["hbm_bw"]            [HBM3]
+  collective = collective bytes / link_bw(chips)      [the link the mesh crosses]
+
+The reference parsed its FLOPs, bytes and collectives out of compiled HLO
+text; the port produces no HLO, so that role passed to the trace: FLOPs,
+bytes (each op's input and output bytes, the proxy for XLA's ``bytes
+accessed``) and each collective's result bytes come from
+``roofline/profile.py::TraceCounter``, and :func:`collective_bytes_from_trace`
+reads the collective bytes by kind.  ``link_bw``: a mesh of at most 8 ranks
+fits one HGX/DGX H100 node, NVLink; a larger mesh (both production meshes)
+crosses nodes, one 400 Gb/s ConnectX-7 NIC per GPU.
+
+MODEL_FLOPS = 6·N·D (dense) or 6·N_active·D (MoE), 2·N·D outside training;
+the ratio MODEL_FLOPS / traced FLOPs exposes remat and redundant work.
 """
 from __future__ import annotations
 
@@ -34,7 +47,102 @@ HW = {
     # NVLink 4 bytes/s per direction (900 GB/s both ways), H100 SXM (NVIDIA
     # H100 data sheet)
     "nvlink_bw": 450e9,
+    # bytes/s a GPU sends across nodes: one 400 Gb/s ConnectX-7 per GPU
+    # (NVIDIA DGX H100 data sheet)
+    "net_bw": 50e9,
 }
+NODE_GPUS = 8  # GPUs of one HGX/DGX H100 node, all to all over NVLink
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
+def link_bw(chips: int) -> float:
+    """Bytes/s of the link a mesh of ``chips`` ranks crosses: NVLink within
+    one node, the network beyond it."""
+    return HW["nvlink_bw"] if chips <= NODE_GPUS else HW["net_bw"]
+
+
+def collective_bytes_from_trace(counter) -> dict[str, int]:
+    """Result bytes of every collective one device issued in a traced step
+    (``profile.TraceCounter``), keyed by kind, plus ``total``."""
+    out = {k: int(counter.collectives[k]) for k in COLLECTIVES}
+    out["total"] = sum(out[k] for k in COLLECTIVES)
+    return out
+
+
+@dataclass
+class RooflineReport:
+    arch: str
+    shape: str
+    mesh: str
+    chips: int
+    traced_flops: float
+    traced_bytes: float
+    collective_bytes: float
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    bottleneck: str
+    model_flops: float
+    useful_ratio: float  # MODEL_FLOPS / (chips × traced FLOPs)
+    step_time_bound_s: float
+    hw_fraction: float  # compute_s / step_time_bound_s ("roofline fraction")
+    note: str = ""
+
+    def to_dict(self):
+        return asdict(self)
+
+
+def analyze(
+    *,
+    arch: str,
+    shape: str,
+    mesh_name: str,
+    chips: int,
+    cost: dict,
+    model_flops: float,
+    note: str = "",
+) -> RooflineReport:
+    """The roofline of one cell from its per-device ``cost`` (``flops``,
+    ``bytes``, ``collective_bytes``: a trace's or the accounting's)."""
+    flops = float(cost.get("flops", 0.0))
+    byts = float(cost.get("bytes", 0.0))
+    coll = float(cost.get("collective_bytes", 0.0))
+    compute_s = flops / HW["peak_flops"]
+    memory_s = byts / HW["hbm_bw"]
+    collective_s = coll / link_bw(chips)
+    terms = {"compute": compute_s, "memory": memory_s, "collective": collective_s}
+    bottleneck = max(terms, key=terms.get)
+    bound = max(terms.values())
+    return RooflineReport(
+        arch=arch,
+        shape=shape,
+        mesh=mesh_name,
+        chips=chips,
+        traced_flops=flops,
+        traced_bytes=byts,
+        collective_bytes=coll,
+        compute_s=compute_s,
+        memory_s=memory_s,
+        collective_s=collective_s,
+        bottleneck=bottleneck,
+        model_flops=model_flops,
+        useful_ratio=(model_flops / chips) / flops if flops else 0.0,
+        step_time_bound_s=bound,
+        hw_fraction=compute_s / bound if bound else 0.0,
+        note=note,
+    )
+
+
+def model_flops_for(cfg, shape_cell, train: bool) -> float:
+    """6·N·D per step (3x for fwd+bwd via the standard 6ND convention)."""
+    n_active = cfg.active_param_count()
+    tokens = shape_cell.global_batch * (
+        shape_cell.seq_len if shape_cell.kind == "train" else
+        (shape_cell.seq_len if shape_cell.kind == "prefill" else 1)
+    )
+    mult = 6.0 if shape_cell.kind == "train" else 2.0
+    return mult * n_active * tokens
 
 _I32 = 4  # ids, parents, NDesc, positions, counts and sums are int32
 _U8 = 1  # keep_mask and the found masks are a byte a slot

@@ -5,7 +5,8 @@ reference's does:
   * activations in the config's dtype, float32 softmax/loss, float32
     optimizer state;
   * gradient accumulation over ``microbatches`` (the global batch dim is
-    split; float32 sums, each term divided by ``microbatches``);
+    split; float32 sums, each term divided by ``microbatches``; under a
+    mesh the batch is made whole first and each microbatch sharded again);
   * global-norm clipping;
   * the cosine schedule, read at the state's step before it advances.
 
@@ -23,6 +24,7 @@ from collections.abc import Callable
 
 import torch
 
+from repro_torch.dist import ctx as shard_ctx
 from repro_torch.models import ModelConfig, lm_loss
 from repro_torch.train.optimizer import (
     OPTIMIZERS,
@@ -64,13 +66,19 @@ def make_train_step(
     def accumulate(params, batch):
         if microbatches <= 1:
             return grads_of(params, batch)
-        split = {k: v.reshape((microbatches, v.shape[0] // microbatches) + tuple(v.shape[1:]))
+        # under a mesh the batch is made whole on every rank before the split
+        # and each microbatch is sharded again: DTensor cannot split a batch
+        # axis sharded over more ranks than there are microbatches
+        split = {k: shard_ctx.replicate(v).reshape(
+                     (microbatches, v.shape[0] // microbatches) + tuple(v.shape[1:]))
                  for k, v in batch.items()}
         acc_loss = torch.zeros((), dtype=torch.float32, device=params.embed.table.device)
-        acc_g = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        # laid out as the parameters (their shards under a mesh)
+        acc_g = {n: torch.zeros_like(p, dtype=torch.float32)
                  for n, p in params.named_parameters()}
         for i in range(microbatches):
-            loss, g = grads_of(params, {k: v[i] for k, v in split.items()})
+            loss, g = grads_of(params, {k: shard_ctx.constrain_batch(v[i])
+                                        for k, v in split.items()})
             acc_loss = acc_loss + loss / microbatches
             acc_g = {n: a + g[n].float() / microbatches for n, a in acc_g.items()}
         return acc_loss, acc_g

@@ -414,3 +414,42 @@ def test_brute_matches_reference():
                 want = getattr(ref_brute, fn)(tree, q)
                 assert got.dtype == want.dtype
                 np.testing.assert_array_equal(got, want, err_msg=f"{fn} {q}")
+
+
+# --------------------------------------------------------------------------- #
+# The registered op repro_torch::searchsorted
+# --------------------------------------------------------------------------- #
+
+
+def test_searchsorted_op_passes_opcheck_and_equals_plain():
+    """Schema, fake implementation, autograd registration and dynamic
+    shapes (``torch.library.opcheck``); on CPU tensors the op is the plain
+    version bit for bit."""
+    rng = np.random.default_rng(8)
+    rows = np.stack([sorted_unique(rng, 300)[:256] for _ in range(3)])
+    a, q = t(rows), t(rng.integers(0, 10**6, size=(3, 100)))
+    torch.library.opcheck(searchsorted.OP, (a, q))
+    assert torch.equal(searchsorted.OP(a, q), searchsorted.searchsorted_plain(a, q))
+    assert torch.equal(searchsorted.searchsorted(a, q), searchsorted.searchsorted_plain(a, q))
+
+
+def test_searchsorted_fake_implementation_gives_shape_and_dtype():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        a = torch.empty(64, 8192, dtype=torch.int32)
+        q = torch.empty(64, 512, dtype=torch.int32)
+        out = searchsorted.searchsorted(a, q)
+    assert (out.shape, out.dtype, out.device) == (q.shape, torch.int32, q.device)
+
+
+@pytest.mark.parametrize("m,log2", [(1, 0), (2, 1), (1000, 10), (1024, 10), (1025, 11)])
+def test_searchsorted_flop_formula_counts_binary_search_compares(m, log2):
+    """B * Q * ceil(log2 M) compares, as ``FlopCounterMode`` reads them."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    a = torch.arange(2 * m, dtype=torch.int32).reshape(2, m)
+    q = torch.zeros((2, 7), dtype=torch.int32)
+    with FlopCounterMode(display=False) as fc:
+        searchsorted.searchsorted(a, q)
+    assert fc.get_total_flops() == 2 * 7 * log2

@@ -211,3 +211,41 @@ def test_split_and_combine_equal_plain(b, t, h, hk, hd, lens):
     want = da.decode_attention_plain(*tt)
     torch.testing.assert_close(got, want, rtol=2e-6, atol=2e-6)
     assert torch.count_nonzero(got[lens == 0]) == 0
+
+
+# --------------------------------------------------------------------------- #
+# The registered op repro_torch::decode_attention
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_registered_op_passes_opcheck_and_equals_plain(dtype):
+    """Schema, fake implementation, autograd registration and dynamic
+    shapes (``torch.library.opcheck``); on CPU tensors the op is the plain
+    version bit for bit."""
+    _, tt = _both(*_inputs(3, 320, 9, 3, 64, seed=4, lens=[1, 320, 77]), dtype)
+    torch.library.opcheck(da.OP, tuple(tt))
+    assert torch.equal(da.OP(*tt), da.decode_attention_plain(*tt))
+    assert torch.equal(da.decode_attention(*tt), da.decode_attention_plain(*tt))
+
+
+def test_fake_implementation_gives_shape_and_dtype():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        q = torch.empty(4, 12, 64, dtype=torch.bfloat16)
+        k = torch.empty(4, 2048, 3, 64, dtype=torch.bfloat16)
+        out = da.decode_attention(q, k, k, torch.empty(4, dtype=torch.int32))
+    assert (out.shape, out.dtype, out.device) == (q.shape, q.dtype, q.device)
+
+
+def test_flop_formula_counts_both_products_over_the_allocated_cache():
+    """4 * B * H * T * hd, T the cache's allocated length (whatever the
+    lengths), as ``FlopCounterMode`` reads it."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    b, t, h, hk, hd = 2, 256, 8, 2, 32
+    _, tt = _both(*_inputs(b, t, h, hk, hd, lens=[1, 17]), "float32")
+    with FlopCounterMode(display=False) as fc:
+        da.decode_attention(*tt)
+    assert fc.get_total_flops() == 4 * b * h * t * hd

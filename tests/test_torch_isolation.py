@@ -24,6 +24,8 @@ loaded = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro.")
 assert not loaded, loaded
 assert sys.modules.get("jax") is None
 assert {"repro_torch.models.moe", "repro_torch.models.ssm"} <= set(names), names
+assert {"repro_torch.launch.dryrun", "repro_torch.launch.hillclimb",
+        "repro_torch.roofline.profile"} <= set(names), names
 print(len(names), sum(n.startswith("repro_torch.cluster") for n in names))
 """
 

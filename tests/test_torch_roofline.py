@@ -25,7 +25,10 @@ from repro_torch.roofline.analysis import (
 
 
 def test_hw_is_the_h100_data_sheet():
-    assert HW == {"peak_flops": 989e12, "hbm_bw": 3.35e12, "nvlink_bw": 450e9}
+    """H100 SXM data sheet; the network rate is the DGX H100's one 400 Gb/s
+    ConnectX-7 per GPU."""
+    assert HW == {"peak_flops": 989e12, "hbm_bw": 3.35e12, "nvlink_bw": 450e9,
+                  "net_bw": 50e9}
 
 
 @pytest.mark.parametrize("w,want", [(0, 0), (16, 16), (4093, 4093),

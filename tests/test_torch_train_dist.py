@@ -258,3 +258,46 @@ def test_sharded_step_on_eight_gloo_ranks_equals_one_device(single_device, tmp_p
     assert placed["blocks.0.ffn.w_down"] == (Replicate(), Shard(0))  # [256, 64]: d_ff
     assert results[0]["restored_placed"]["blocks.0.ffn.w_up"] == (Replicate(), Shard(1))
     assert sorted(os.listdir(tmp_path / "ckpt")) == ["step_00000002", "step_00000002.done"]
+
+
+def microbatch_job(shape, microbatches):
+    """Two sharded steps on mesh ``shape`` with the batch cut into
+    ``microbatches``: the metrics, and on rank 0 the state as numpy."""
+    mesh = DeviceMesh("cpu", torch.arange(dist.get_world_size()).reshape(shape),
+                      mesh_dim_names=_names(shape))
+    run = launcher.pieces(small_cfg(), **TRAIN, microbatches=microbatches, device="cpu",
+                          mesh=mesh)
+    step, state = run.make_step(), run.fresh_state()
+    metrics = []
+    for s in range(2):
+        state, m = step(state, run.next_batch(s))
+        metrics.append({k: launcher.value(v) for k, v in m.items()})
+    saved = state_to_numpy(state)
+    return {"metrics": metrics, "saved": saved if dist.get_rank() == 0 else None}
+
+
+def test_microbatched_sharded_step_equals_one_device(tmp_path):
+    """Microbatches under a mesh with more data ranks than microbatches
+    (8 rows, 2 microbatches of 4 over 4 data ranks: DTensor cannot split
+    the sharded batch axis itself): the batch is made whole before the
+    split and each microbatch sharded again; against the same two steps on
+    one device."""
+    run = launcher.pieces(small_cfg(), **TRAIN, microbatches=2, device="cpu")
+    step, state = run.make_step(), run.fresh_state()
+    want_metrics = []
+    for s in range(2):
+        state, m = step(state, run.next_batch(s))
+        want_metrics.append({k: float(v) for k, v in m.items()})
+    results = run_ranks(4, "gloo", microbatch_job, ((4, 1), 2), tmp_path / "ranks")
+    import numpy.testing as npt
+
+    for res in results:
+        for got, want in zip(res["metrics"], want_metrics):
+            for k in ("loss", "grad_norm", "lr"):
+                assert got[k] == pytest.approx(want[k], rel=SHARDED_TOL), (k, got, want)
+    for (name, got), (_n, want) in zip(flatten_with_names(results[0]["saved"]),
+                                       flatten_with_names(state_to_numpy(state))):
+        want = np.asarray(want, np.float64)
+        npt.assert_allclose(np.asarray(got, np.float64), want, rtol=0,
+                            atol=SHARDED_TOL * float(np.abs(want).max(initial=0.0)),
+                            err_msg=name)
