@@ -8,7 +8,8 @@ Phases (any failure exits non-zero, and no result line is printed):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the five kernels from ``src/repro_torch/csrc`` with nvcc, one
      process per source, all at once, with the time of each, and import
-     each as a Python extension module;
+     each as a Python extension module; meanwhile the host builds phase
+     3's corpus and index, and phase 14(a)'s two processes start;
   3. the fused search path at a realistic size: the synthetic discogs corpus
      of 20,000 releases (about 1.03 M nodes), ``KeywordSearchEngine`` on
      ``cuda``, the paper's nine queries x slca/elca x the tree and DAG
@@ -19,8 +20,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      and read just after; the calls per route (rows / tiles) and each
      batch's shape are printed;
   4. every answer equals the port's ``"scalar"`` backend (the paper's host
-     algorithms) and the ``"torch"`` backend on the same engine (warmed on
-     Q4-Q9: the DAG Q1-Q3 take seconds each on the host and need no warming);
+     algorithms), and the ``"torch"`` backend's on Q4-Q9 equal it too (the
+     DAG Q1-Q3 take seconds each in the host loop; they are left out of
+     the torch pass for the run's time limit);
   5. the chained path on the same engine: warmed on Q4-Q9, then one counted
      pass of the 36 engine queries with ``backend="chained"`` and a
      ``QueryService(backend="chained")`` answering the 18 DAG queries in one
@@ -133,9 +135,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      a step as a share of the bf16 peak, peak device memory and the
      checkpoint save and restore seconds; (b) one step at SmolLM's widths
      cut to 2 layers (float32, 2 x 128) on the card against the CPU from one
-     seeded state; (c) 4 gloo ranks sharing the card, mesh (4, 1), two steps
-     on DTensors against one device, then the checkpoint's elastic restore
-     onto mesh (1, 4).  No kernel of the port lies on this path;
+     seeded state; (c) 4 gloo ranks sharing the card, mesh (2, 2) (9 heads
+     over "model" 2: the positions route of ``dist/local.py``), two steps
+     against one device, then the checkpoint's elastic restore onto mesh
+     (1, 4).  No kernel of the port lies on this path;
   13. the MoE, MLA, Mamba and RWKV-6 blocks (``blocks_phase``): (a)
      DeepSeek-V2-Lite-16B whole (27 layers, MLA + 64 experts top-6 + 2
      shared, 15.7 B parameters) in bf16 with seeded weights, served through
@@ -169,8 +172,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      built;
   14. the dry-run (``dryrun_phase``): (a) ``python -m
      repro_torch.launch.dryrun --arch smollm-135m --shape decode_32k`` with
-     its accounting, then ``--search``, each in a subprocess (fake tensors
-     over a fake group of 256 ranks; the card is not used): each record's
+     its accounting, and ``--search``, each in a subprocess started with
+     the build (fake tensors over a fake group of 256 ranks; the card is
+     not used) and read here: each record's
      ok, mesh, chips, memory, costs and roofline terms, the
      ``repro_torch::decode_attention`` calls in the op table (30, one a
      layer) and the host seconds of the trace; (b) SmolLM-135M at this
@@ -185,7 +189,7 @@ Phases (any failure exits non-zero, and no result line is printed):
      rate) and its share of it; each step traced on fake ``cpu`` tensors
      too (the trace a host without CUDA makes) with the same costs and
      memory; the decode step's 30 decode_attention launches each held
-     against plain; (b') a reduced train step on a fake (4, 1) mesh traced
+     against plain; (b') a reduced train step on a fake (2, 2) mesh traced
      on fake ``cuda`` and fake ``cpu`` tensors: the same costs;
   15. a ``{"kernels": [...]}`` line with all five kernels (searchsorted's
      with ``dist_launches`` per run and rank and ``dist_max_abs_err``,
@@ -1375,23 +1379,38 @@ def paired_pass_ms(calls_a, calls_b) -> tuple[float, float]:
     return float(np.median(times[0])), float(np.median(times[1]))
 
 
-def search_phase(card: str):
-    """The fused and chained search paths, checked and measured; returns
-    their kernel lines, the corpus, its engine on the card and the scalar
-    answers."""
-    import torch
+class Corpus(NamedTuple):
+    tree: object
+    engine: object
+    gen_s: float
+    build_s: float
 
-    from repro_torch.core import KeywordSearchEngine, PlanCache
+
+def search_corpus() -> Corpus:
+    """The corpus and its engine on the card (host work only: ``main``
+    runs it while the kernels compile)."""
+    from repro_torch.core import KeywordSearchEngine
     from repro_torch.data import generate_discogs_tree
-    from repro_torch.kernels import fused_search
 
-    # ---- corpus + engine on the card ---------------------------------- #
     t0 = time.perf_counter()
     tree = generate_discogs_tree(n_releases=N_RELEASES, seed=0)
     t_gen = time.perf_counter() - t0
     t0 = time.perf_counter()
     engine = KeywordSearchEngine(tree, device=DEVICE)
-    t_build = time.perf_counter() - t0
+    return Corpus(tree, engine, t_gen, time.perf_counter() - t0)
+
+
+def search_phase(card: str, corpus: Corpus):
+    """The fused and chained search paths, checked and measured; returns
+    their kernel lines, the corpus, its engine on the card and the scalar
+    answers."""
+    import torch
+
+    from repro_torch.core import PlanCache
+    from repro_torch.kernels import fused_search
+
+    # ---- corpus + engine on the card ---------------------------------- #
+    tree, engine, t_gen, t_build = corpus
     sizes = engine.index_sizes()
     print(
         f"corpus: {N_RELEASES} releases, {tree.num_nodes} nodes, "
@@ -1441,9 +1460,14 @@ def search_phase(card: str):
               f"{b['rows_used']} {b['sum_n0']}" for b in shapes))
 
     # ---- answers against the scalar and torch backends ---------------- #
+    # the torch backend (no kernel of the port) runs the queries but the
+    # DAG Q1-Q3, whose host loops take seconds each and are timed on the
+    # kernels' paths: the run's time limit
+    light = ("Q4", "Q5", "Q6", "Q7", "Q8", "Q9")
     scalar, scalar_lat = run_engine(engine, "scalar")
-    run_engine(engine, "torch", names=("Q4", "Q5", "Q6", "Q7", "Q8", "Q9"))  # warm
-    vec, torch_lat = run_engine(engine, "torch")
+    run_engine(engine, "torch", names=light)  # warm
+    vec, torch_ms = run_engine(engine, "torch", names=light)
+    torch_lat = dict(zip(((n, s, i) for n, _w, s, i in query_matrix(light)), torch_ms))
     assert_equal(fused, scalar, "fused engine")
     assert_equal(served, scalar, "fused service")
     assert_equal(vec, scalar, "torch engine")
@@ -1487,24 +1511,23 @@ def search_phase(card: str):
         f"{chained_svc.get('launches')}"
     )
     for name, lat in (("fused", fused_lat), ("chained", chained_lat),
-                      ("torch", torch_lat), ("scalar", scalar_lat)):
+                      ("torch Q4-Q9", torch_ms), ("scalar", scalar_lat)):
         print(f"per-query ms {name}: p50 {np.percentile(lat, 50):.3f} "
               f"max {max(lat):.3f} over {len(lat)} queries")
     per_query = [
         {"query": f"{n} {s} {i}", "ids": int(fused[(n, s, i)].size),
-         "fused_ms": f, "chained_ms": ch, "torch_ms": t, "scalar_ms": c}
-        for (n, _w, s, i), f, ch, t, c in zip(
-            query_matrix(), fused_lat, chained_lat, torch_lat, scalar_lat
-        )
+         "fused_ms": f, "chained_ms": ch, "torch_ms": torch_lat.get((n, s, i)),
+         "scalar_ms": c}
+        for (n, _w, s, i), f, ch, c in zip(query_matrix(), fused_lat, chained_lat, scalar_lat)
     ]
     for q in sorted(per_query, key=lambda q: -q["fused_ms"])[:4]:
+        torch_text = "-" if q["torch_ms"] is None else f"{q['torch_ms']:.1f} ms"
         print(f"slowest fused: {q['query']} {q['ids']} ids: fused "
               f"{q['fused_ms']:.1f} ms chained {q['chained_ms']:.1f} ms torch "
-              f"{q['torch_ms']:.1f} ms scalar {q['scalar_ms']:.1f} ms")
+              f"{torch_text} scalar {q['scalar_ms']:.1f} ms")
 
     # where a fused query's time goes: one profiled pass of the queries
     # other than the DAG Q1-Q3 (their host loops are timed above)
-    light = ("Q4", "Q5", "Q6", "Q7", "Q8", "Q9")
     wall_ms, dev, _ = profile_pass(lambda: run_engine(engine, "fused", names=light))
     busy_ms = sum(dev.values())
     profile_rec = {
@@ -3116,13 +3139,14 @@ TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 20, 10, 15
 # the loss of each new batch rose over 20 steps on the card (PERF.md §6),
 # at 1e-4 it holds and the loss of a batch already seen falls
 TRAIN_LR, TRAIN_WARMUP = 1e-4, 2
-# 4 gloo ranks share the card (NCCL refuses two ranks on one card).  DTensor's
-# all-gather over gloo killed a rank with SIGSEGV on CUDA tensors on every
-# try, and mesh (2, 2)'s step needs it (PERF.md §6): so the step runs
-# data-parallel on (4, 1) (all-reduces only), and its checkpoint is
-# restored onto (1, 4), every leaf sharded over "model", each rank's pieces
-# checked on the rank
-TRAIN_RANKS, TRAIN_MESH, TRAIN_RESTORE_MESH = 4, (4, 1), (1, 4)
+# 4 gloo ranks share the card (NCCL refuses two ranks on one card).  Gloo's
+# all-gather of CUDA tensors kills a rank (SIGSEGV; DTensor's and the
+# functional one alike), so the port's step gathers through
+# ``dist/local.py`` (an all-to-all there) and no DTensor op of the AdamW
+# step all-gathers: mesh (2, 2), SmolLM's 9 heads over "model" 2 (the
+# positions route), its checkpoint restored onto (1, 4), every leaf
+# sharded over "model", each rank's pieces checked on the rank
+TRAIN_RANKS, TRAIN_MESH, TRAIN_RESTORE_MESH = 4, (2, 2), (1, 4)
 # the widths of the card-vs-CPU and the sharded checks: SmolLM's, 2 layers,
 # float32, batch 2 x 128.  Adam divides each gradient by its own RMS, so on
 # an element whose gradient is near zero (a token row far from the batch)
@@ -3130,7 +3154,7 @@ TRAIN_RANKS, TRAIN_MESH, TRAIN_RESTORE_MESH = 4, (4, 1), (1, 4)
 # the learning rate: at 1e-4 that stays well inside the limit
 TRAIN_SMALL = dict(batch=2, seq=128, lr=1e-4, warmup=0, steps=10, optimizer="adamw")
 TRAIN_TOL = 1e-4  # each metric, and each leaf's max |difference| over its max |value|
-TRAIN_SHARDED = dict(TRAIN_SMALL, batch=4)  # the 4 data ranks take a row each
+TRAIN_SHARDED = dict(TRAIN_SMALL, batch=4)  # the 2 data ranks take 2 rows each
 
 
 def train_small_cfg():
@@ -3182,18 +3206,19 @@ def small_steps(device: str, steps: int, mesh=None, init=None, train=TRAIN_SMALL
 
 def restore_err(restored, saved, mesh) -> float:
     """The largest |difference| between each restored DTensor's local piece
-    and the same piece of the saved state, cut on this rank: the saved
-    state is replicated on (4, 1), so nothing is gathered (gloo's DTensor
-    all-gather of CUDA tensors crashes)."""
+    and the same piece of the saved state, gathered whole and cut on this
+    rank (``dist.local.full``: gloo's DTensor all-gather of CUDA tensors
+    kills the rank)."""
     from torch.distributed.tensor import distribute_tensor
 
+    from repro_torch.dist.local import full as whole
     from repro_torch.dist.sharding import tensor_tree
     from repro_torch.tree import flatten_with_names
 
     saved_flat = dict(flatten_with_names(tensor_tree(saved)))
     worst = 0.0
     for name, r in flatten_with_names(tensor_tree(restored)):
-        full = saved_flat[name].full_tensor().detach()
+        full = whole(saved_flat[name]).detach()
         want = distribute_tensor(full, mesh, r.placements, src_data_rank=None).to_local()
         worst = max(worst, float((r.to_local().double() - want.double()).abs().max()))
     return worst
@@ -3895,14 +3920,14 @@ DRYRUN_STEPS = {  # (b): chip_smoke's own sizes, as extra cells of the registry
     "smoke_train": ("train", LM_PROMPT),  # one AdamW step on 8 x 1,024
 }
 DRYRUN_MESH_CELL = ("smoke_mesh_train", "train", 64, 16)  # (name, kind, seq, batch)
-DRYRUN_MESH = (4, 1)  # data-parallel: torch 2.11's DTensor refuses this step on (2, 2)
+DRYRUN_MESH = (2, 2)  # traced on the explicit layout (dist/local.py), the heads route
 DRYRUN_MESH_DEVICES = ("cuda", "cpu")  # the fake tensors' devices held equal in (b')
 
 
-def dryrun_cli(args: list, out: Path) -> list[dict]:
+def dryrun_cli(args: list, out: Path) -> tuple[list[dict], list[str]]:
     """One run of ``python -m repro_torch.launch.dryrun`` (fake tensors over a
-    fake group of 256 ranks; no card is used) writing ``out``; raises unless
-    it exits 0."""
+    fake group of 256 ranks; no card is used) writing ``out``: its records
+    and the lines to print; raises unless it exits 0."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *args,
@@ -3912,12 +3937,21 @@ def dryrun_cli(args: list, out: Path) -> list[dict]:
     if proc.returncode != 0:
         raise AssertionError(f"dryrun {args} exited {proc.returncode}:\n"
                              f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
-    for line in proc.stdout.splitlines():
-        if line.startswith(("[dryrun]", "         roofline")):
-            print(f"dryrun (a): {line.strip()}")
-    print(f"dryrun (a): {' '.join(args)}: {wall:.1f} s host wall")
+    lines = [f"dryrun (a): {line.strip()}" for line in proc.stdout.splitlines()
+             if line.startswith(("[dryrun]", "         roofline"))]
+    lines.append(f"dryrun (a): {' '.join(args)}: {wall:.1f} s host wall")
     with open(out) as f:
-        return json.load(f)
+        return json.load(f), lines
+
+
+def start_dryrun_cli(pool: ThreadPoolExecutor) -> dict:
+    """Phase 14(a)'s two CLI runs at full width, a decode cell with its
+    accounting and the search, submitted to ``pool``: host work only, so
+    ``main`` starts them first and they run while the kernels compile."""
+    OUT_DIR.mkdir(exist_ok=True)
+    return {"cell": pool.submit(dryrun_cli, ["--arch", LM_ARCH, "--shape", "decode_32k"],
+                                OUT_DIR / "dryrun_decode_32k.json"),
+            "search": pool.submit(dryrun_cli, ["--search"], OUT_DIR / "dryrun_search.json")}
 
 
 def step_on_card(kind: str, model, cfg, seq: int) -> tuple:
@@ -3971,9 +4005,10 @@ def measure_step(fn, args) -> dict:
             "ms": cuda_ms(lambda: fn(*args))}
 
 
-def dryrun_phase(card: str) -> dict:
-    """The dry-run on the card host (module docstring, phase 14); returns the
-    decode step's decode_attention calls, checked."""
+def dryrun_phase(card: str, cli: dict) -> dict:
+    """The dry-run on the card host (module docstring, phase 14), ``cli`` the
+    CLI runs of :func:`start_dryrun_cli`; returns the decode step's
+    decode_attention calls, checked."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
@@ -3986,13 +4021,9 @@ def dryrun_phase(card: str) -> dict:
     da = module("decode_attention")
     record = {"card": card}
     OUT_DIR.mkdir(exist_ok=True)
-    # (a) the CLI at full width: a decode cell with its accounting, and the
-    # search, the two processes at once
-    with ThreadPoolExecutor(2) as pool:
-        cell = pool.submit(dryrun_cli, ["--arch", LM_ARCH, "--shape", "decode_32k"],
-                           OUT_DIR / "dryrun_decode_32k.json")
-        searched = pool.submit(dryrun_cli, ["--search"], OUT_DIR / "dryrun_search.json")
-        (rec,), (search,) = cell.result(), searched.result()
+    # (a) the CLI at full width, started with the run (start_dryrun_cli)
+    ((search,), search_lines), ((rec,), cell_lines) = cli["search"].result(), cli["cell"].result()
+    print("\n".join(search_lines + cell_lines))
     calls = rec["ops"].get("repro_torch.decode_attention", {}).get("calls", 0)
     r = rec["roofline"]
     print(f"dryrun (a): {LM_ARCH} x decode_32k ok {rec['ok']} mesh {rec['mesh']} chips "
@@ -4109,13 +4140,27 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this check needs one card",
               file=sys.stderr)
         return 2
-    from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
     card = card_line()
     print(card)
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
+
+    # host work that needs no kernel runs while the kernels compile: the
+    # dry-run CLI's two processes (phase 14(a)) and the search corpus
+    background = ThreadPoolExecutor(2)
+    try:
+        return run_phases(card, kind, t_start, start_dryrun_cli(background))
+    finally:
+        background.shutdown()  # a failed run waits for the CLI (its own timeout)
+
+
+def run_phases(card: str, kind: str, t_start: float, cli: dict) -> int:
+    """Every phase after the card check (module docstring); 0 when all pass."""
+    import torch
+
+    from repro_torch.kernels import _build
 
     # ---- build: one nvcc per source, all started together --------------- #
     modules = [module(name) for name in KERNELS]
@@ -4127,13 +4172,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(modules)) as pool:
-        built = list(pool.map(build, modules))
+        builds = [pool.submit(build, mod) for mod in modules]
+        corpus = search_corpus()
+        built = [b.result() for b in builds]
     for mod, (lib, secs) in zip(modules, built):
         _build.load(mod._SOURCE)
         print(f"build: {lib.relative_to(ROOT)} in {secs:.2f} s")
-    print(f"build: all {len(modules)} kernels in {time.perf_counter() - t0:.2f} s")
+    print(f"build: all {len(modules)} kernels in {time.perf_counter() - t0:.2f} s "
+          f"(the corpus built on the host meanwhile)")
 
-    search_lines, tree, engine, scalar = search_phase(card)
+    search_lines, tree, engine, scalar = search_phase(card, corpus)
+    del corpus
     print(f"search phase done at {time.perf_counter() - t_start:.1f} s")
     dist = dist_phase(card, engine, scalar)
     print(f"dist phase done at {time.perf_counter() - t_start:.1f} s")
@@ -4164,7 +4213,7 @@ def main() -> int:
     llama4 = blocks_phase(card)
     print(f"blocks phase done at {time.perf_counter() - t_start:.1f} s")
     torch.cuda.empty_cache()
-    dry = dryrun_phase(card)
+    dry = dryrun_phase(card, cli)
     print(f"dryrun phase done at {time.perf_counter() - t_start:.1f} s")
     decode_line = lines[-1]
     decode_line["lm_launches"] = decode_line["launches"]

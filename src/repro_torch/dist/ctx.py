@@ -17,6 +17,11 @@ replicated over the mesh when they meet a DTensor.
 
 Constraints are *best effort*, as the reference's: an axis that does not
 divide the mesh dims is left as it is rather than padded.
+
+:func:`layout` is the other way: the cache-free forward (training, an
+encoder's forward) runs on the rank's local tensors with its collectives
+written out (``dist/local.py``), and only the sublayers without such a
+layout (MoE, MLA, Mamba, RWKV-6) meet DTensor, at the constraints above.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch.dist import local
 from repro_torch.dist.sharding import _data_axes, _dp_size, _sizes, batch_entries, placements
 
 _ACTIVE: ContextVar["ShardCtx | None"] = ContextVar("repro_torch_shard_ctx", default=None)
@@ -86,6 +92,17 @@ class ShardCtx:
             return self.constrain_batch(x)
         return self._constrain(x, {**self._batch(x), "model": 2})
 
+    def shard_rows(self, x):
+        """Pin axis 0 (a step's rows) over the data dims that divide it, the
+        innermost first, the rest whole: a microbatch of fewer rows than
+        data ranks is split where it can be, and repeated only over the
+        dims that cannot split it."""
+        sizes, entries, n = _sizes(self.mesh), {}, 1
+        for a in reversed(self.data_axes):
+            if x.shape[0] % (n * sizes[a]) == 0:
+                entries[a], n = 0, n * sizes[a]
+        return self._constrain(x, entries)
+
     def moe_groups(self, t: int, num_experts: int) -> int:
         """The MoE's routing groups for ``t`` tokens: one per data shard when
         they divide ``t`` and each group holds ``num_experts`` tokens or
@@ -94,9 +111,12 @@ class ShardCtx:
         return g if g > 1 and t % g == 0 and t // g >= num_experts else 1
 
     def replicate(self, x):
-        """The whole of ``x`` on every rank: what is sharded is gathered,
-        what is pending is reduced."""
-        return self._constrain(x, {})
+        """The whole of ``x`` (a step's input: no gradient) on every rank:
+        what is sharded is gathered (``local.full``: gloo cannot all-gather
+        CUDA tensors through DTensor), what is pending is reduced."""
+        if not isinstance(x, DTensor):
+            return x
+        return DTensor.from_local(local.full(x), self.mesh, placements(self.mesh, {}))
 
     def constrain_groups(self, x):
         """Pin axis 0 (the MoE's token groups) over the data dims, the rest
@@ -152,6 +172,11 @@ def constrain_heads(x):
     return x if sctx is None else sctx.constrain_heads(x)
 
 
+def shard_rows(x):
+    sctx = current()
+    return x if sctx is None else sctx.shard_rows(x)
+
+
 def moe_groups(t: int, num_experts: int) -> int:
     sctx = current()
     return 1 if sctx is None else sctx.moe_groups(t, num_experts)
@@ -170,3 +195,13 @@ def constrain_groups(x):
 def constrain_experts(x):
     sctx = current()
     return x if sctx is None else sctx.constrain_experts(x)
+
+
+def layout(x) -> local.Local:
+    """The explicit layout (``dist/local.py``) of a cache-free forward over
+    the batch input ``x``: this rank's rows of ``x`` under an active mesh,
+    else one device."""
+    sctx = current()
+    if sctx is None or not isinstance(x, DTensor):
+        return local.ONE_DEVICE
+    return local.Local(sctx.mesh, x)

@@ -42,7 +42,11 @@ Per valid cell the dry-run:
 
 The record keeps the reference's keys where their meaning holds (``arch``,
 ``shape``, ``mesh`` "16x16", ``chips``, ``microbatches``, ``ok``,
-``memory``, ``accounting``, ``roofline``).  Two are renamed: ``compile_s``
+``memory``, ``accounting``, ``roofline``), plus ``share``: the one-device
+trace's FLOPs at the cell's microbatches (``account_cell`` with no mesh)
+and the chips' FLOPs over them (1 where each device computes its share);
+a record of a ``cfg_override`` (a depth clone) has ``units``, its depth in
+scan units, so that it cannot pass for the cell.  Two are renamed: ``compile_s``
 is ``trace_s`` (host seconds to build and trace the step), and
 ``hlo_once_costs`` is ``trace_costs`` (every layer counted, not a while
 body once).  ``ops`` is the trace's op table (op -> calls, flops, bytes,
@@ -151,7 +155,8 @@ def _place(tree, specs_fn, mesh):
     return tree if mesh is None else shd.to_named(tree, specs_fn(tree, mesh), mesh)
 
 
-def _build_step(cfg: ModelConfig, shape: str, mesh, microbatches: int, device: str):
+def _build_step(cfg: ModelConfig, shape: str, mesh, microbatches: int, device: str,
+                optimizer: str):
     """(step function, its arguments) of the production step, on fake
     tensors placed on ``mesh`` (one device when ``mesh`` is None)."""
     cell = SHAPES[shape]
@@ -160,7 +165,7 @@ def _build_step(cfg: ModelConfig, shape: str, mesh, microbatches: int, device: s
 
     if cell.kind == "train":
         init_state, train_step = make_train_step(
-            cfg, optimizer=pick_optimizer(cfg), microbatches=microbatches)
+            cfg, optimizer=optimizer, microbatches=microbatches)
         state = _place(init_state(model), shd.param_specs, mesh)
         batch = _place(specs["batch"], shd.data_specs, mesh)
         return train_step, (state, batch)
@@ -205,18 +210,20 @@ def trace_device() -> str:
 
 
 def lower_step(cfg: ModelConfig, shape: str, mesh, microbatches: int = 1, *,
-               device: str | None = None) -> Trace:
+               device: str | None = None, optimizer: str | None = None) -> Trace:
     """Build and trace the production step for (cfg, shape) on mesh.
 
     ``mesh`` None traces one device.  ``device`` defaults to
     :func:`trace_device`; the tests trace ``"cpu"`` to compare FLOPs with a
-    real CPU run of the same step.
+    real CPU run of the same step.  ``optimizer`` defaults to
+    ``pick_optimizer(cfg)`` (a depth clone takes its model's).
     """
     device = device or trace_device()
+    optimizer = optimizer or pick_optimizer(cfg)
     t0 = time.perf_counter()
     with FakeTensorMode(), tracing_dtensor(), (
             nullcontext() if mesh is None else shard_ctx.use(mesh)):
-        step, args = _build_step(cfg, shape, mesh, microbatches, device)
+        step, args = _build_step(cfg, shape, mesh, microbatches, device, optimizer)
         counter = TraceCounter()
         arg_bytes = counter.hold(args)
         with counter:
@@ -231,17 +238,22 @@ def lower_step(cfg: ModelConfig, shape: str, mesh, microbatches: int = 1, *,
 
 
 def account_cell(cfg: ModelConfig, shape: str, mesh, microbatches: int, *,
-                 device: str | None = None) -> dict:
+                 device: str | None = None, optimizer: str | None = None) -> dict:
     """Per-device costs via the 1-unit / 2-unit clone extrapolation (each
-    clone traced with ``microbatches``), as the reference's
-    ``account_cell``; ``trace_s``, the host seconds of each clone's trace."""
-    t1 = lower_step(_depth_clone(cfg, 1), shape, mesh, microbatches, device=device)
+    clone traced with ``microbatches`` and ``cfg``'s optimizer, by default
+    ``pick_optimizer(cfg)``: a clone of a model of 100 B parameters or more
+    is smaller, and would pick AdamW), as the reference's ``account_cell``;
+    ``trace_s``, the host seconds of each clone's trace."""
+    optimizer = optimizer or pick_optimizer(cfg)
+    t1 = lower_step(_depth_clone(cfg, 1), shape, mesh, microbatches, device=device,
+                    optimizer=optimizer)
     m1, trace_s = t1.costs, [t1.trace_s]
     steps = cfg.num_scan_steps
     if steps == 1:  # whole net in one unit (e.g. deepseek): m1 is exact
         m2 = m1
     else:
-        t2 = lower_step(_depth_clone(cfg, 2), shape, mesh, microbatches, device=device)
+        t2 = lower_step(_depth_clone(cfg, 2), shape, mesh, microbatches, device=device,
+                        optimizer=optimizer)
         m2 = t2.costs
         trace_s.append(t2.trace_s)
 
@@ -285,8 +297,10 @@ def lower_cell(
     if with_accounting is None:
         with_accounting = not multi_pod
 
-    full = lower_step(cfg, shape, mesh, mb)
-    acct = account_cell(cfg, shape, mesh, mb) if with_accounting else None
+    opt = pick_optimizer(get_config(arch))  # a depth clone's (cfg_override) too
+    full = lower_step(cfg, shape, mesh, mb, optimizer=opt)
+    acct = account_cell(cfg, shape, mesh, mb, optimizer=opt) if with_accounting else None
+    one = account_cell(cfg, shape, None, mb, optimizer=opt)
 
     rec = {
         "arch": arch,
@@ -300,7 +314,13 @@ def lower_cell(
         "memory": full.memory,
         "trace_costs": full.costs,  # every layer counted
         "ops": full.counter.table,
+        # the step's FLOPs on one device at the same microbatches, and the
+        # chips' FLOPs over them: 1 where each device computes its share
+        "share": {"one_device_flops": one["flops"],
+                  "ratio": chips * full.costs["flops"] / one["flops"] if one["flops"] else None},
     }
+    if cfg_override is not None:  # not the cell's model: the record says how deep
+        rec["units"] = cfg.num_scan_steps
     if acct is not None:
         acct["matches_trace"] = all(acct[k] == full.costs[k] for k in COST_KEYS)
         rec["accounting"] = acct
@@ -316,7 +336,8 @@ def lower_cell(
     if verbose:
         ms = rec["memory"]
         line = (
-            f"[dryrun] {arch} × {shape} × {mesh_name}: OK "
+            f"[dryrun] {arch}{'' if cfg_override is None else f' ({cfg.num_scan_steps} units)'}"
+            f" × {shape} × {mesh_name}: OK "
             f"({rec['trace_s']}s host) args={_gb(ms['argument_bytes'])} "
             f"temp={_gb(ms['temp_bytes'])}"
         )
@@ -327,6 +348,7 @@ def lower_cell(
             f" collective={r['collective_s']*1e3:.2f}ms"
             f" -> {r['bottleneck']}-bound"
             f" useful={r['useful_ratio']:.2f} frac={r['hw_fraction']:.2f}"
+            f" share={rec['share']['ratio']:.4f}x"
         )
         print(line, flush=True)
     return rec

@@ -8,7 +8,7 @@ same thing).  Started by ``torchrun`` (``WORLD_SIZE`` > 1 in the
 environment) it starts the process group, NCCL on the card and gloo on the
 CPU, and trains on ``launch.mesh.make_host_mesh()``: the state placed by
 ``dist.sharding.param_specs``, each batch by ``data_specs``, the step run
-on DTensors under ``dist.ctx.use(mesh)``.
+under ``dist.ctx.use(mesh)``, laid out by ``dist/local.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --reduced --steps 200 --batch 8 --seq 128 --ckpt-dir /path/to/ckpt
@@ -29,12 +29,12 @@ from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor
 
 from repro_torch.api import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import PipelineConfig, global_batch
 from repro_torch.dist import ctx as shard_ctx
+from repro_torch.dist import local
 from repro_torch.dist import sharding as shd
 from repro_torch.launch.mesh import make_host_mesh, rank_device
 from repro_torch.models import ModelConfig, init_params
@@ -51,7 +51,7 @@ class Pieces(NamedTuple):
 
 def value(t) -> float:
     """A 0-d metric as a float (a DTensor gathered first)."""
-    return float(t.full_tensor() if isinstance(t, DTensor) else t)
+    return float(local.full(t))
 
 
 def pieces(cfg: ModelConfig, *, batch: int, seq: int, seed: int = 0, lr: float = 3e-4,

@@ -4,7 +4,8 @@ The reference's ``repro.models.attention`` in PyTorch.  GQA has three
 entry modes, as there:
 
   * train/prefill without a cache: full sequence, causal (or bidirectional
-    for encoders), plain ``_sdpa`` (einsum, float32 softmax);
+    for encoders), plain ``_sdpa`` (einsum, float32 softmax), on one
+    rank's share under a mesh (:func:`gqa_local`, ``dist/local.py``);
   * prefill against a cache (``s > 1``): the new rows are written at
     ``cache["len"]`` and ``_sdpa`` runs over the whole cache under the
     reference's mask;
@@ -91,15 +92,18 @@ def causal_mask(s: int, t: int, window: int = 0, offset: int = 0, device=None):
     return m[None, None]
 
 
-def _sdpa_qchunked(q, k, v, n_rep: int, causal: bool, window: int, chunk: int):
-    """Query-chunked attention: the [B,H,S,T] scores shrink to [B,H,chunk,T]."""
-    s = q.shape[1]
+def _attend(q, k, v, n_rep: int, causal: bool, window: int, chunk: int, start: int = 0):
+    """Cache-free attention of the queries at positions ``start`` on over
+    every key: in query chunks of ``chunk`` where they divide (the
+    [B,H,S,T] scores shrink to [B,H,chunk,T]), else at once."""
+    s, t = q.shape[1], k.shape[1]
+    if not (chunk and s > chunk and s % chunk == 0):
+        chunk = s
     outs = []
     for i in range(0, s, chunk):
-        m = (causal_mask(chunk, k.shape[1], window, offset=i, device=q.device)
-             if causal else None)
+        m = causal_mask(chunk, t, window, offset=start + i, device=q.device) if causal else None
         outs.append(_sdpa(q[:, i:i + chunk], k, v, m, n_rep))
-    return torch.cat(outs, dim=1)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 def decode_lengths(positions: torch.Tensor, start: int, causal: bool = True) -> torch.Tensor:
@@ -116,15 +120,70 @@ def decode_lengths(positions: torch.Tensor, start: int, causal: bool = True) -> 
     return (positions[:, 0].clamp(max=start) + 1).clamp(min=0).to(torch.int32)
 
 
+def gqa_local(params: GQA, x, cfg: ModelConfig, positions, causal: bool, lay):
+    """Cache-free GQA (training, an encoder's forward) of a normed input on
+    one rank's share, ``lay`` a ``dist.local.Local`` (x [b, S, D] the rank's
+    rows, whole; ``positions`` [b, S]).  Two routes:
+
+      * heads, where "model" divides the heads and the KV heads or the head
+        dim: the rank's query heads, ``wo``'s rows of those heads and one
+        all-reduce of the output; its KV heads, or where "model" does not
+        divide them its columns of every KV head's projection, all-gathered;
+      * positions, where it does not: the rank's query positions against
+        every key, K and V projected for its positions and all-gathered,
+        the output all-gathered; the weights whole.
+
+    Masked scores are computed as on one device, so each rank's products
+    are its share.  Where "model" divides neither the heads nor the
+    positions, every rank computes the whole."""
+    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rep, s, m = h // hk, x.shape[1], lay.m
+    heads = h % m == 0 and (hk % m == 0 or hd % m == 0)
+    if not heads and s % m:
+        lay, m, heads = lay.whole(), 1, True
+    if heads:
+        hl = h // m
+        x = lay.enter(x)
+        q = apply_rope(torch.einsum("bsd,dhk->bshk", x, lay.weight(params.wq, 1)),
+                       positions, cfg.rope_theta)
+        by_heads = hk % m == 0  # this rank's KV heads, else its columns of each
+        k, v = (torch.einsum("bsd,dhk->bshk", x, lay.weight(w, 1 if by_heads else 2))
+                for w in (params.wk, params.wv))
+        if not by_heads:
+            k, v = (lay.gather(t, 3, partial=True) for t in (k, v))
+        k = apply_rope(k, positions, cfg.rope_theta)
+        if not by_heads:  # the KV head of each of this rank's query heads
+            kv = torch.div(torch.arange(lay.r * hl, (lay.r + 1) * hl, device=x.device), rep,
+                           rounding_mode="floor")
+            k, v, rep = k.index_select(2, kv), v.index_select(2, kv), 1
+        out = _attend(q, k, v, rep, causal, cfg.attn_window, cfg.attn_q_chunk)
+        return lay.leave(torch.einsum("bshk,hkd->bsd", out, lay.weight(params.wo, 0)))
+    # positions
+    sl = s // m
+    p0 = lay.r * sl
+    x = lay.split(x, 1)
+    positions = positions[:, p0:p0 + sl]
+    wq, wk, wv, wo = (lay.weight(w, partial=True)
+                      for w in (params.wq, params.wk, params.wv, params.wo))
+    q = apply_rope(torch.einsum("bsd,dhk->bshk", x, wq), positions, cfg.rope_theta)
+    k = apply_rope(torch.einsum("bsd,dhk->bshk", x, wk), positions, cfg.rope_theta)
+    k = lay.gather(k, 1, partial=True)
+    v = lay.gather(torch.einsum("bsd,dhk->bshk", x, wv), 1, partial=True)
+    out = _attend(q, k, v, rep, causal, cfg.attn_window, cfg.attn_q_chunk, start=p0)
+    return lay.gather(torch.einsum("bshk,hkd->bsd", out, wo), 1, partial=False)
+
+
 def gqa_apply(
     params: GQA,
     x,  # [B, S, D]
     cfg: ModelConfig,
     positions,  # [B, S] int32
-    cache: dict | None = None,  # {"k":[B,T,Hk,hd], "v":..., "len": int}
+    cache: dict,  # {"k":[B,T,Hk,hd], "v":..., "len": int}
     causal: bool = True,
     decode_len: torch.Tensor | None = None,  # [B] int32, decode_lengths()
 ):
+    """GQA against a cache (prefill and decode; the cache-free path is
+    :func:`gqa_local`).  Returns (y, the cache with its new length)."""
     b, s, _ = x.shape
     n_rep = cfg.n_heads // cfg.n_kv_heads
     q = torch.einsum("bsd,dhk->bshk", x, params.wq)
@@ -135,41 +194,31 @@ def gqa_apply(
     # heads over "model" when a mesh is active (the identity otherwise)
     q = shard_ctx.constrain_heads(q)
 
-    if cache is not None:
-        start = cache["len"]
-        ck, cv = cache["k"], cache["v"]
-        t = ck.shape[1]
-        if start + s > t:
-            raise ValueError(f"cache of {t} positions holds {start}; {s} more do not fit")
-        # the reference's cache is immutable (dynamic_update_slice); the port
-        # writes the new rows into the caller's cache tensors in place
-        ck[:, start:start + s] = k.to(ck.dtype)
-        cv[:, start:start + s] = v.to(cv.dtype)
-        if s == 1 and cfg.attn_window == 0:
-            if decode_len is None:
-                decode_len = decode_lengths(positions, start, causal)
-            out = decode_kernel.decode_attention(q[:, 0], ck, cv, decode_len)[:, None]
-        else:
-            kpos = torch.arange(t, device=x.device)[None, :]
-            valid = kpos < (start + s)
-            if causal:
-                m = (kpos[None] <= positions[:, :, None]) & valid[:, None]
-            else:
-                m = valid[:, None].expand(b, s, t)
-            if cfg.attn_window > 0:
-                m = m & (kpos[None] > (positions[:, :, None] - cfg.attn_window))
-            out = _sdpa(q, ck, cv, m[:, None], n_rep)
-        new_cache = {"k": ck, "v": cv, "len": start + s}
+    start = cache["len"]
+    ck, cv = cache["k"], cache["v"]
+    t = ck.shape[1]
+    if start + s > t:
+        raise ValueError(f"cache of {t} positions holds {start}; {s} more do not fit")
+    # the reference's cache is immutable (dynamic_update_slice); the port
+    # writes the new rows into the caller's cache tensors in place
+    ck[:, start:start + s] = k.to(ck.dtype)
+    cv[:, start:start + s] = v.to(cv.dtype)
+    if s == 1 and cfg.attn_window == 0:
+        if decode_len is None:
+            decode_len = decode_lengths(positions, start, causal)
+        out = decode_kernel.decode_attention(q[:, 0], ck, cv, decode_len)[:, None]
     else:
-        chunk = cfg.attn_q_chunk
-        if chunk and s > chunk and s % chunk == 0:
-            out = _sdpa_qchunked(q, k, v, n_rep, causal, cfg.attn_window, chunk)
+        kpos = torch.arange(t, device=x.device)[None, :]
+        valid = kpos < (start + s)
+        if causal:
+            m = (kpos[None] <= positions[:, :, None]) & valid[:, None]
         else:
-            m = causal_mask(s, s, cfg.attn_window, device=x.device) if causal else None
-            out = _sdpa(q, k, v, m, n_rep)
-        new_cache = None
+            m = valid[:, None].expand(b, s, t)
+        if cfg.attn_window > 0:
+            m = m & (kpos[None] > (positions[:, :, None] - cfg.attn_window))
+        out = _sdpa(q, ck, cv, m[:, None], n_rep)
     y = torch.einsum("bshk,hkd->bsd", out, params.wo)
-    return y, new_cache
+    return y, {"k": ck, "v": cv, "len": start + s}
 
 
 def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int,

@@ -20,9 +20,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor
 
 from repro_torch.api import resolve_device
+from repro_torch.dist import local
 from repro_torch.tree import flatten_with_names, tree_map, unflatten_names
 
 from .config import ModelConfig
@@ -45,6 +45,13 @@ def reference_groups(model: Model) -> dict[str, str | list[str]]:
         else:
             groups[name.replace(".", "/")] = name
     return groups
+
+
+def per_layer_stat(stat: str, layer_ndim: int) -> bool:
+    """Whether Adafactor keeps ``stat`` of a stacked group per layer (a list
+    that :func:`reference_tree` stacks): all but the columns of a stack of
+    vectors (the mean over its layers, one tensor)."""
+    return not (stat == "vc" and layer_ndim == 1)
 
 
 def _flat(tree) -> dict:
@@ -103,19 +110,24 @@ def state_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
                    "v": per_param_from_numpy(opt["v"], model, dev)}
     else:
         flat = _flat(opt)
-        new_opt = {"stats": {
-            key: {s: _tensor(flat[f"stats/{key}/{s}"], torch.float32, dev)
-                  for s in (("vr", "vc") if f"stats/{key}/vr" in flat else ("v",))}
-            for key in reference_groups(model)}}
+        new_opt = {"stats": {}}
+        for key, names in reference_groups(model).items():
+            ndim = model.get_parameter(names if isinstance(names, str) else names[0]).ndim
+            stats = new_opt["stats"][key] = {}
+            for s in ("vr", "vc") if f"stats/{key}/vr" in flat else ("v",):
+                arr = np.asarray(flat[f"stats/{key}/{s}"])
+                stats[s] = ([_tensor(a, torch.float32, dev) for a in arr]
+                            if not isinstance(names, str) and per_layer_stat(s, ndim)
+                            else _tensor(arr, torch.float32, dev))
     new_opt["count"] = _int32(opt["count"], dev)
     return {"params": model, "opt": new_opt, "step": _int32(tree["step"], dev)}
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:
-    """The whole tensor on the host (a DTensor gathered first)."""
-    if isinstance(t, DTensor):
-        t = t.full_tensor()
-    return t.detach().cpu()
+    """The whole tensor on the host (a DTensor gathered first, by
+    ``dist.local.full``: gloo cannot all-gather CUDA tensors through
+    DTensor)."""
+    return local.full(t).detach().cpu()
 
 
 def reference_tree(state: dict) -> dict:
@@ -137,8 +149,9 @@ def reference_tree(state: dict) -> dict:
         for part in ("m", "v"):
             flat.update({f"opt/{part}/{k}": v for k, v in stacked(opt[part]).items()})
     else:
-        for key, stats in opt["stats"].items():
-            flat.update({f"opt/stats/{key}/{s}": _host(t) for s, t in stats.items()})
+        for key, stats in opt["stats"].items():  # a layer's own stats stacked
+            flat.update({f"opt/stats/{key}/{s}": torch.stack([_host(x) for x in t])
+                         if isinstance(t, list) else _host(t) for s, t in stats.items()})
     flat["opt/count"] = _host(opt["count"])
     flat["step"] = _host(state["step"])
     return unflatten_names(flat)

@@ -121,11 +121,30 @@ class MLP(nn.Module):
             p.data.copy_(dense_init(gen, *p.shape, p.dtype))
 
     def forward(self, x):
+        return self.apply_with(x, self.w_up, self.w_down,
+                               self.w_gate if self.kind == "swiglu" else None)
+
+    def apply_with(self, x, w_up, w_down, w_gate=None):
+        """The MLP of this kind with the weights given (pieces of its own)."""
         if self.kind == "swiglu":
-            return swiglu(x, self.w_gate, self.w_up, self.w_down)
+            return swiglu(x, w_gate, w_up, w_down)
         if self.kind == "relu2":
-            return relu2(x, self.w_up, self.w_down)
-        return gelu_mlp(x, self.w_up, self.w_down)
+            return relu2(x, w_up, w_down)
+        return gelu_mlp(x, w_up, w_down)
+
+
+def mlp_local(mlp: MLP, h, lay):
+    """``mlp(h)`` for a normed input ``h`` on one rank's share, ``lay`` a
+    ``dist.local.Local``: the up (and gate) columns split over "model", the
+    down rows, one all-reduce of the output and one of the input's
+    gradient; no weight is gathered.  Where "model" does not divide d_ff,
+    every "model" rank computes the whole MLP."""
+    if mlp.w_up.shape[-1] % lay.m:
+        lay = lay.whole()
+    h = lay.enter(h)
+    gate = lay.weight(mlp.w_gate, 1) if mlp.kind == "swiglu" else None
+    y = mlp.apply_with(h, lay.weight(mlp.w_up, 1), lay.weight(mlp.w_down, 0), gate)
+    return lay.leave(y)
 
 
 # --------------------------------------------------------------------------- #

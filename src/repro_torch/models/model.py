@@ -14,10 +14,14 @@ checkpointing of each block while gradients are recorded: ``"full"``
 recomputes the whole block in the backward pass, ``"dots"`` saves the
 outputs of the matrix products without batch dimensions (the projections
 and MLP products, as ``dots_with_no_batch_dims_saveable`` does) and
-recomputes the rest, ``"none"`` saves everything.  The reference's
-sharding constraints (``dist.ctx``) sit where the reference puts them:
-the batch after the embedding and after each block, the vocabulary on the
-logits, the heads on q; with no active mesh they are the identity.
+recomputes the rest, ``"none"`` saves everything.  Without a cache
+(training, an encoder's forward) the forward runs on each rank's share
+with its layout written out (``_forward_local``, ``dist/local.py``; with
+no active mesh, on the whole).  Against a cache (prefill, decode) it runs
+on DTensors, with the reference's sharding constraints (``dist.ctx``)
+where the reference puts them: the batch after the embedding and after
+each block, the vocabulary on the logits, the heads on q; with no active
+mesh they are the identity.
 
 Blocks: every (mixer, FFN) pair of ``models/config.py``: the GQA, MLA,
 Mamba and RWKV-6 time-mix mixers; the SwiGLU, squared-ReLU, GELU, MoE and
@@ -53,11 +57,23 @@ from .attention import (
     decode_lengths,
     gqa_apply,
     gqa_cache_init,
+    gqa_local,
     mla_apply,
     mla_cache_init,
 )
 from .config import ModelConfig
-from .layers import MLP, Embedding, Head, RMSNorm, embed, head, torch_dtype, unembed
+from .layers import (
+    MLP,
+    Embedding,
+    Head,
+    RMSNorm,
+    embed,
+    head,
+    mlp_local,
+    rmsnorm,
+    torch_dtype,
+    unembed,
+)
 from .moe import MoE, moe_apply
 
 # mixer kind -> (module, apply, cache init); the cache inits of the
@@ -147,7 +163,11 @@ def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
 # --------------------------------------------------------------------------- #
 
 
+_DENSE_FFNS = ("swiglu", "relu2", "gelu")
+
+
 def _apply_block(block: Block, x, cfg, positions, cache, causal, decode_len):
+    """A block against a cache (prefill, decode), on DTensors under a mesh."""
     args = (block.mixer, block.norm1(x, cfg.norm_eps), cfg, positions, cache, causal)
     if block.mixer_kind == "gqa":
         y, new_cache = gqa_apply(*args, decode_len)
@@ -160,13 +180,84 @@ def _apply_block(block: Block, x, cfg, positions, cache, causal, decode_len):
     if block.ffn_kind == "moe":
         y = moe_apply(block.ffn, h, cfg)
     elif block.ffn_kind == "rwkv6_cm":
-        y, ffn_cache = ssm.rwkv6_cm_apply(block.ffn, h, cfg,
-                                          None if cache is None else cache["ffn"])
-        if cache is not None:
-            new_cache["ffn"] = ffn_cache
+        y, new_cache["ffn"] = ssm.rwkv6_cm_apply(block.ffn, h, cfg, cache["ffn"])
     else:
         y = block.ffn(h)
     return x + y, new_cache
+
+
+def _normed(norm: RMSNorm, x, eps: float, lay):
+    return rmsnorm(x, lay.weight(norm.scale), eps)
+
+
+def _block_local(block: Block, x, cfg, positions, causal, lay):
+    """A block without a cache on this rank's rows ``x`` (``lay``, a
+    ``dist.local.Local``; ``positions`` [B, S] of every row): GQA and the
+    dense MLPs with their layout written out, the other sublayers on
+    DTensors at the reference's constraints (``lay.region``)."""
+    eps = cfg.norm_eps
+    if block.mixer_kind == "gqa":
+        x = x + gqa_local(block.mixer, _normed(block.norm1, x, eps, lay), cfg,
+                          positions[lay.rows], causal, lay)
+    else:
+        mixer = _MIXERS[block.mixer_kind][1]
+        x = x + lay.region(x, lambda xd: mixer(block.mixer, block.norm1(xd, eps), cfg,
+                                               positions, None, causal)[0])
+    if block.ffn_kind == "none":
+        return x
+    if block.ffn_kind in _DENSE_FFNS:
+        return x + mlp_local(block.ffn, _normed(block.norm2, x, eps, lay), lay)
+    def ffn(xd):
+        h = block.norm2(xd, eps)
+        if block.ffn_kind == "moe":
+            return moe_apply(block.ffn, h, cfg)
+        return ssm.rwkv6_cm_apply(block.ffn, h, cfg, None)[0]
+
+    return x + lay.region(x, ffn)
+
+
+def _vocab_part(lay, vocab: int):
+    """(layout, first id) of this rank's part of the vocabulary: split over
+    "model" where it divides the vocabulary, else whole."""
+    return (lay, lay.r * (vocab // lay.m)) if vocab % lay.m == 0 else (lay.whole(), 0)
+
+
+def _embed_local(table, tokens, lay):
+    """The embedding of this rank's ``tokens``, vocabulary-parallel: each
+    rank looks up the ids of its part, one all-reduce adds them."""
+    lay, first = _vocab_part(lay, table.shape[0])
+    w = lay.weight(table, 0)
+    if lay.m == 1:
+        return embed(w, tokens)
+    ids = tokens - first
+    hit = (ids >= 0) & (ids < w.shape[0])
+    return lay.leave(embed(w, torch.where(hit, ids, 0)) * hit[..., None].to(w.dtype))
+
+
+def _forward_local(params: Model, cfg: ModelConfig, tokens, embeddings, positions, lay):
+    """The cache-free forward on this rank's share (``lay``): its rows'
+    logits over its part of the vocabulary, and that part's layout."""
+    causal = not cfg.encoder_only
+    parts = []
+    if embeddings is not None:
+        parts.append(lay.local(embeddings))
+    if tokens is not None:
+        parts.append(_embed_local(params.embed.table, lay.local(tokens), lay))
+    x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+    s = x.shape[1]
+    batch = (tokens if tokens is not None else embeddings).shape[0]
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(batch, s)
+    for block in params.blocks:
+        block_fn = functools.partial(_block_local, block, cfg=cfg, positions=positions,
+                                     causal=causal, lay=lay)
+        x = _remat(block_fn, cfg.remat_policy)(x) if torch.is_grad_enabled() else block_fn(x)
+    x = _normed(params.final_norm, x, cfg.norm_eps, lay)
+    vlay, _ = _vocab_part(lay, cfg.vocab)
+    x = vlay.enter(x)
+    if cfg.tie_embeddings:
+        return unembed(vlay.weight(params.embed.table, 0), x), vlay
+    return head(vlay.weight(params.head.w, 1), x), vlay
 
 
 _aten = torch.ops.aten
@@ -202,7 +293,14 @@ def forward(
     positions=None,
     cache=None,  # one dict per layer (init_cache)
 ):
-    """Returns (logits [B, S_total, V], new_cache)."""
+    """Returns (logits [B, S_total, V], new_cache).  Without a cache the
+    forward runs on each rank's share under a mesh (``dist/local.py``) and
+    the logits come back as a DTensor, rows over the data dims and the
+    vocabulary over "model"."""
+    if cache is None:
+        lay = shard_ctx.layout(tokens if tokens is not None else embeddings)
+        logits, vlay = _forward_local(params, cfg, tokens, embeddings, positions, lay)
+        return lay.dtensor(logits, 2 if vlay.m > 1 else None), None
     causal = not cfg.encoder_only
     parts = []
     if embeddings is not None:
@@ -217,24 +315,15 @@ def forward(
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     x = shard_ctx.constrain_batch(x)
     decode_len = None
-    gqa_lens = [] if cache is None else [
-        c["len"] for blk, c in zip(params.blocks, cache) if blk.mixer_kind == "gqa"]
+    gqa_lens = [c["len"] for blk, c in zip(params.blocks, cache) if blk.mixer_kind == "gqa"]
     if gqa_lens and s == 1 and cfg.attn_window == 0:
         # one [B] length tensor per decode step, shared by every GQA layer
         # (the first may be a recurrent layer, which keeps no length)
         decode_len = decode_lengths(positions, gqa_lens[0], causal)
     new_cache = []
-    for i, block in enumerate(params.blocks):
-        c = None if cache is None else cache[i]
-
-        def block_fn(x, block=block, c=c):
-            x, nc = _apply_block(block, x, cfg, positions, c, causal, decode_len)
-            return shard_ctx.constrain_batch(x), nc
-
-        if c is None and torch.is_grad_enabled():
-            x, nc = _remat(block_fn, cfg.remat_policy)(x)
-        else:
-            x, nc = block_fn(x)
+    for block, c in zip(params.blocks, cache):
+        x, nc = _apply_block(block, x, cfg, positions, c, causal, decode_len)
+        x = shard_ctx.constrain_batch(x)
         new_cache.append(nc)
     x = params.final_norm(x, cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -242,7 +331,7 @@ def forward(
     else:
         logits = head(params.head.w, x)
     logits = shard_ctx.constrain_vocab(logits)
-    return logits, (None if cache is None else new_cache)
+    return logits, new_cache
 
 
 # --------------------------------------------------------------------------- #
@@ -250,38 +339,48 @@ def forward(
 # --------------------------------------------------------------------------- #
 
 
+def _logsumexp(x, lay):
+    """``logsumexp`` over the last axis, split over "model" by ``lay``."""
+    if lay.m == 1:
+        return torch.logsumexp(x, dim=-1)
+    top = lay.max(x.amax(dim=-1))
+    return top + torch.log(lay.leave(torch.exp(x - top[..., None]).sum(dim=-1)))
+
+
 def lm_loss(params: Model, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """Next-token CE for decoders; per-position CE for encoder-only models.
 
     batch: {"tokens": [B,S]} (+ optional "embeddings", "labels", "mask").
-    The float32 scalar mean over the valid positions."""
+    The float32 scalar mean over the valid positions.  Under a mesh each
+    rank takes its rows and its part of the vocabulary (``dist/local.py``);
+    the sums over the vocabulary cross "model", those over the rows the
+    data dims, each reduced once."""
     tokens = batch.get("tokens")
     embeddings = batch.get("embeddings")
-    logits, _ = forward(params, cfg, tokens=tokens, embeddings=embeddings)
+    lay = shard_ctx.layout(tokens if tokens is not None else embeddings)
+    logits, vlay = _forward_local(params, cfg, tokens, embeddings, None, lay)
     valid = None
     if cfg.encoder_only:
-        labels = batch["labels"]
+        labels = lay.local(batch["labels"])
         pred = logits[:, -labels.shape[1]:, :]
     else:
-        labels = tokens[:, 1:]
+        labels = lay.local(tokens)[:, 1:]
         pred = logits[:, :-1, :]
         if embeddings is not None:  # frontend prefix carries no LM labels
             pred = pred[:, embeddings.shape[1]:, :]
         if "mask" in batch:
-            valid = batch["mask"][:, 1:].float()
+            valid = lay.local(batch["mask"])[:, 1:].float()
     # The label's logit as the reference takes it, a one-hot contraction
-    # (here a masked sum, exact: one term is not zero).  On logits sharded
-    # over the vocabulary (a DTensor) every term stays local to its shard
-    # and one sum crosses shards; a gather there leaves a masked partial
-    # value that DTensor cannot reduce once indexed.
+    # (here a masked sum, exact: one term is not zero), over this rank's
+    # part of the vocabulary.
     pred32 = pred.float()
-    lse = torch.logsumexp(pred32, dim=-1)
-    vocab_ids = torch.arange(pred.shape[-1], device=labels.device)
-    label_logit = torch.where(vocab_ids == labels[..., None], pred32, 0.0).sum(dim=-1)
+    lse = _logsumexp(pred32, vlay)
+    vocab_ids = vlay.r * pred.shape[-1] + torch.arange(pred.shape[-1], device=labels.device)
+    label_logit = vlay.leave(torch.where(vocab_ids == labels[..., None], pred32, 0.0).sum(dim=-1))
     ll = label_logit - lse
     if valid is None:
         valid = torch.ones_like(ll)
-    return -(ll * valid).sum() / valid.sum().clamp(min=1.0)
+    return -lay.rows_sum((ll * valid).sum()) / lay.rows_sum(valid.sum()).clamp(min=1.0)
 
 
 # --------------------------------------------------------------------------- #

@@ -16,18 +16,25 @@ leaf of rank 2 or more and clips each leaf's update by its RMS.  The
 reference stacks each scan-unit position's layers on a leading axis, so a
 layer's ``[D]`` norm scale is one row of a ``[L, D]`` leaf there, factored,
 and every update RMS is taken over all layers of the leaf.  The port's
-Adafactor runs on those same stacked groups (``convert.reference_groups``):
-its stats are the reference's, keyed by the reference's leaf paths
-(``blocks/<u>/mixer/wq``).  AdamW is elementwise, so its moments are kept
+Adafactor keeps the stats of those same stacked groups
+(``convert.reference_groups``), keyed by the reference's leaf paths
+(``blocks/<u>/mixer/wq``), each layer's own (``convert.reference_tree``
+stacks them), and computes them layer by layer: a layer's rows and columns
+from its own gradient (the columns of a stack of vectors from all of
+them), the update clip's RMS from the layers' sums of squares, so no rank
+stacks a group's parameters, gradients or stats.  AdamW is elementwise, so its moments are kept
 per parameter.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.models.convert import per_layer_stat, reference_groups
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -105,36 +112,83 @@ def _groups(params) -> dict[str, str | list[str]]:
     """The optimizer's leaves: the reference's stacked groups for a model
     (``convert.reference_groups``), else every tensor its own leaf."""
     if isinstance(params, nn.Module):
-        from repro_torch.models.convert import reference_groups
-
         return reference_groups(params)
     return {n: n for n in params}
 
 
-def _group(leaves: dict, names: str | list[str]) -> torch.Tensor:
-    if isinstance(names, str):
-        return leaves[names]
-    return torch.stack([leaves[n] for n in names])
-
-
 def adafactor_init(params) -> dict:
+    """Zero stats for the reference's leaves: a leaf of rank 2 or more (a
+    stacked group counts its layer axis) factored into rows ``vr`` and
+    columns ``vc``, else ``v``.  A stacked group's stats are lists of each
+    layer's own (``convert.reference_tree`` stacks them), but for the
+    columns of a stack of vectors, one tensor."""
     leaves = _leaves(params)
 
-    def stats(shape, device):
-        if len(shape) >= 2:
-            return {
-                "vr": torch.zeros(shape[:-1], dtype=torch.float32, device=device),  # rows
-                "vc": torch.zeros(shape[:-2] + shape[-1:], dtype=torch.float32,
-                                  device=device),
-            }
-        return {"v": torch.zeros(shape, dtype=torch.float32, device=device)}
+    def zeros(shape, device):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
 
     out = {}
     for key, names in _groups(params).items():
-        first = leaves[names if isinstance(names, str) else names[0]]
-        shape = tuple(first.shape) if isinstance(names, str) else (len(names), *first.shape)
-        out[key] = stats(shape, first.device)
+        stacked = not isinstance(names, str)
+        first = leaves[names[0] if stacked else names]
+        shape, dev = tuple(first.shape), first.device
+        if len(shape) + stacked < 2:
+            shapes = {"v": shape}
+        elif stacked and len(shape) == 1:
+            shapes = {"vr": (), "vc": shape}
+        else:
+            shapes = {"vr": shape[:-1], "vc": shape[:-2] + shape[-1:]}
+        out[key] = {
+            stat: [zeros(sh, dev) for _ in names]
+            if stacked and per_layer_stat(stat, len(shape)) else zeros(sh, dev)
+            for stat, sh in shapes.items()}
     return {"stats": out, "count": torch.zeros((), dtype=torch.int32, device=_device(leaves))}
+
+
+def _in_layout_of(stat, g, axis: int):
+    """``stat``, ``g`` reduced over ``axis``, in ``g``'s layout less that
+    axis (a DTensor redistributed; a small one), so that its product with
+    ``g`` moves nothing of ``g``'s size."""
+    if not isinstance(g, DTensor):
+        return stat
+    want = [Shard(p.dim - (p.dim > axis)) if isinstance(p, Shard) and p.dim != axis
+            else Replicate() for p in g.placements]
+    return stat.redistribute(stat.device_mesh, want)
+
+
+def _factored(gs: list, s: dict, beta, eps: float) -> list:
+    """Each layer's update ``g / sqrt(v)`` of one leaf (``gs``, a layer's
+    gradient each), its stats ``s`` updated in place (``adafactor_init``):
+    the reference's factored rows and columns, or the whole second moment."""
+    g2s = [g.square() + eps for g in gs]
+
+    def rows(stat):  # the stat's tensor for each layer
+        t = s[stat]
+        return t if isinstance(t, list) else [t]
+
+    if "v" in s:
+        vs = rows("v")
+        for v, g2 in zip(vs, g2s):
+            v.copy_(beta * v + (1 - beta) * g2)
+        return [g * torch.rsqrt(v + eps) for g, v in zip(gs, vs)]
+    vrs = rows("vr")
+    if isinstance(s["vr"], list) and not isinstance(s["vc"], list):
+        # a stack of vectors: a row per layer, the columns over the layers
+        for vr, g2 in zip(vrs, g2s):
+            vr.copy_(beta * vr + (1 - beta) * g2.mean())
+        vc = s["vc"]
+        vc.copy_(beta * vc + (1 - beta) * functools.reduce(torch.add, g2s) / len(g2s))
+        denom = torch.clamp(functools.reduce(torch.add, vrs) / len(vrs), min=eps)
+        return [g * torch.rsqrt(vr / denom * vc + eps) for g, vr in zip(gs, vrs)]
+    out = []
+    for g, g2, vr, vc in zip(gs, g2s, vrs, rows("vc")):
+        vr.copy_(beta * vr + (1 - beta) * g2.mean(dim=-1))
+        vc.copy_(beta * vc + (1 - beta) * g2.mean(dim=-2))
+        denom = torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps)
+        r = _in_layout_of(vr / denom, g, g.ndim - 1)
+        c = _in_layout_of(vc, g, g.ndim - 2)
+        out.append(g * torch.rsqrt(r[..., None] * c[..., None, :] + eps))
+    return out
 
 
 @torch.no_grad()
@@ -148,34 +202,25 @@ def adafactor_update(
     clip_threshold: float = 1.0,
     weight_decay: float = 0.0,
 ):
-    """One step over the reference's leaves; ``params`` and the stats change
-    in place.  Returns (params, state)."""
+    """One step over the reference's leaves, layer by layer on each layer's
+    own tensor (its local shard under a mesh; no group is stacked);
+    ``params`` and the stats change in place.  Returns (params, state)."""
     count = state["count"] + 1
     beta = 1.0 - count.float() ** (-decay)
     leaves = _leaves(params)
     for key, names in _groups(params).items():
-        p, g = _group(leaves, names), _group(grads, names).float()
-        s = state["stats"][key]
-        g2 = g.square() + eps
-        if p.ndim >= 2:
-            s["vr"].copy_(beta * s["vr"] + (1 - beta) * g2.mean(dim=-1))
-            s["vc"].copy_(beta * s["vc"] + (1 - beta) * g2.mean(dim=-2))
-            denom = torch.clamp(s["vr"].mean(dim=-1, keepdim=True), min=eps)
-            precond = s["vr"][..., None] / denom[..., None] * s["vc"][..., None, :]
-            update = g * torch.rsqrt(precond + eps)
-        else:
-            s["v"].copy_(beta * s["v"] + (1 - beta) * g2)
-            update = g * torch.rsqrt(s["v"] + eps)
-        # update clipping (RMS <= clip_threshold), over the whole leaf
-        rms = (update.square().mean() + eps).sqrt()
-        update = update / torch.clamp(rms / clip_threshold, min=1.0)
-        p32 = p.float()
-        new_p = p32 - lr * (update + weight_decay * p32)
-        if isinstance(names, str):
-            leaves[names].copy_(new_p)
-        else:
-            for i, n in enumerate(names):
-                leaves[n].copy_(new_p[i])
+        stacked = not isinstance(names, str)
+        layers = names if stacked else [names]
+        updates = _factored([grads[n].float() for n in layers], state["stats"][key], beta, eps)
+        # update clipping (RMS <= clip_threshold) over the whole leaf: the
+        # layers' sums of squares added (under a mesh, one scalar all-reduce)
+        sq = functools.reduce(torch.add, [u.square().sum() for u in updates])
+        rms = (sq / sum(u.numel() for u in updates) + eps).sqrt()
+        scale = torch.clamp(rms / clip_threshold, min=1.0)
+        for name, update in zip(layers, updates):
+            p = leaves[name]
+            p32 = p.float()
+            p.copy_(p32 - lr * (update / scale + weight_decay * p32))
     state["count"] = count
     return params, state
 

@@ -6,7 +6,8 @@ reference's does:
     optimizer state;
   * gradient accumulation over ``microbatches`` (the global batch dim is
     split; float32 sums, each term divided by ``microbatches``; under a
-    mesh the batch is made whole first and each microbatch sharded again);
+    mesh the batch is made whole first and each microbatch's rows sharded
+    again over the data dims that divide them);
   * global-norm clipping;
   * the cosine schedule, read at the state's step before it advances.
 
@@ -65,10 +66,11 @@ def make_train_step(
 
     def accumulate(params, batch):
         if microbatches <= 1:
-            return grads_of(params, batch)
+            return grads_of(params, {k: shard_ctx.shard_rows(v) for k, v in batch.items()})
         # under a mesh the batch is made whole on every rank before the split
-        # and each microbatch is sharded again: DTensor cannot split a batch
-        # axis sharded over more ranks than there are microbatches
+        # and each microbatch is sharded again, over the data dims that
+        # divide its rows: DTensor cannot split a batch axis sharded over
+        # more ranks than there are microbatches
         split = {k: shard_ctx.replicate(v).reshape(
                      (microbatches, v.shape[0] // microbatches) + tuple(v.shape[1:]))
                  for k, v in batch.items()}
@@ -77,7 +79,7 @@ def make_train_step(
         acc_g = {n: torch.zeros_like(p, dtype=torch.float32)
                  for n, p in params.named_parameters()}
         for i in range(microbatches):
-            loss, g = grads_of(params, {k: shard_ctx.constrain_batch(v[i])
+            loss, g = grads_of(params, {k: shard_ctx.shard_rows(v[i])
                                         for k, v in split.items()})
             acc_loss = acc_loss + loss / microbatches
             acc_g = {n: a + g[n].float() / microbatches for n, a in acc_g.items()}

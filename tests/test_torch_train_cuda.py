@@ -8,12 +8,15 @@
   PyTorch's default for float32 matmuls; the small rate keeps Adam's step
   on a near-zero gradient, which another summation order moves, inside it).
 * The sharded step of ``test_torch_train_dist.py`` on 4 gloo ranks sharing
-  the card, mesh (4, 1) (data-parallel), against the single-device step on
-  the card, then the elastic restore of its checkpoint onto mesh (1, 4),
-  every leaf sharded over "model", each rank's pieces checked on the rank.
-  DTensor's all-gather over gloo segfaulted on CUDA tensors on every try,
-  and mesh (2, 2) needs it in the step (PERF.md §6); its all-reduce,
-  reduce-scatter and all-to-all take them, as a test here shows.
+  the card, mesh (4, 1) (data-parallel) and mesh (2, 2) (the explicit
+  layout of ``dist/local.py``, heads over "model"), against the
+  single-device step on the card, then the elastic restore of its
+  checkpoint onto mesh (1, 4), every leaf sharded over "model", each
+  rank's pieces checked on the rank.  Gloo's all-gather of CUDA tensors
+  (DTensor's, or the functional collective's) kills a rank; DTensor's
+  all-reduce, reduce-scatter and all-to-all take them, as a test here
+  shows, and so do ``dist.local``'s collectives (its all-gather an
+  all-to-all there) and ``dist.local.full``.
 * ``python -m repro_torch.launch.train --reduced`` on the card.
 
 Runs only where a CUDA device is present; on a host without one every test
@@ -74,6 +77,51 @@ def test_sharded_step_four_gloo_ranks_share_the_card(card, tmp_path):
                         tmp_path / "ranks")
     check_sharded(results, *single_device_steps("cuda"))
     assert results[0]["restored_placed"]["embed.table"] == (Replicate(), Shard(0))
+
+
+def test_sharded_step_on_mesh_2x2_shares_the_card(card, tmp_path):
+    results = run_ranks(4, "gloo", train_job, ((2, 2), (1, 4), "cuda", str(tmp_path / "ckpt")),
+                        tmp_path / "ranks")
+    check_sharded(results, *single_device_steps("cuda"))
+    assert results[0]["placed"]["blocks.0.mixer.wq"] == (Replicate(), Shard(0))
+
+
+def _local_collectives_job():
+    """``dist.local``'s collectives over the 4-rank world group, and
+    ``full`` of a leaf sharded on both dims of mesh (2, 2), on CUDA
+    tensors; the results on the host."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.dist import local
+
+    torch.cuda.set_device(0)
+    group, rank = dist.group.WORLD, dist.get_rank()
+    x = torch.arange(6.0, device="cuda").reshape(2, 3) + 10 * rank
+    mesh = DeviceMesh("cuda", torch.arange(4).reshape(2, 2), mesh_dim_names=("data", "model"))
+    leaf = distribute_tensor(torch.arange(16.0, device="cuda").reshape(4, 4), mesh,
+                             (Shard(0), Shard(1)), src_data_rank=None)
+    out = {
+        "all_gather_1": local.all_gather(x, 1, group),
+        "all_reduce": local.all_reduce(x, group),
+        "reduce_scatter_1": local.reduce_scatter(
+            torch.ones(2, 16, device="cuda") * (rank + 1), 1, group),
+        "all_to_all": local.all_to_all(
+            torch.arange(24.0, device="cuda").reshape(8, 3) + 100 * rank, 0, 1, group),
+        "full": local.full(leaf),
+    }
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def test_local_collectives_take_cuda_tensors_under_gloo(card, tmp_path):
+    out = run_ranks(4, "gloo", _local_collectives_job, (), tmp_path)
+    xs = [torch.arange(6.0).reshape(2, 3) + 10 * r for r in range(4)]
+    for r, got in enumerate(out):
+        torch.testing.assert_close(got["all_gather_1"], torch.cat(xs, 1))
+        torch.testing.assert_close(got["all_reduce"], sum(xs))
+        torch.testing.assert_close(got["reduce_scatter_1"], torch.full((2, 4), 10.0))
+        pieces = [torch.arange(24.0).reshape(8, 3)[2 * r:2 * r + 2] + 100 * q for q in range(4)]
+        torch.testing.assert_close(got["all_to_all"], torch.cat(pieces, 1))
+        torch.testing.assert_close(got["full"], torch.arange(16.0).reshape(4, 4))
 
 
 def _collective_job(name):

@@ -35,6 +35,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from repro_torch.configs import get_config
+from repro_torch.dist import local
 from repro_torch.dist import sharding as shd
 from repro_torch.launch import train as launcher
 from repro_torch.models import init_cache, init_params
@@ -172,12 +173,14 @@ def _gathered_placements(state) -> dict:
 def restore_err(restored, saved, mesh) -> float:
     """The largest |difference| between each restored DTensor's local piece
     and the same piece of the saved state, cut on this rank (no collective
-    beyond gathering a saved leaf that is sharded: on the card, gloo's
-    DTensor all-gather of CUDA tensors crashes, PERF.md §6)."""
+    beyond gathering a saved leaf that is sharded: DTensor's own gather on
+    the CPU, ``dist.local.full`` on the card, where gloo's all-gather of
+    CUDA tensors through DTensor kills the rank)."""
     saved_flat = dict(flatten_with_names(shd.tensor_tree(saved)))
     worst = 0.0
     for name, r in flatten_with_names(shd.tensor_tree(restored)):
-        full = saved_flat[name].full_tensor().detach()
+        leaf = saved_flat[name]
+        full = (local.full(leaf) if leaf.is_cuda else leaf.full_tensor()).detach()
         want = distribute_tensor(full, mesh, r.placements, src_data_rank=None).to_local()
         worst = max(worst, float((r.to_local().double() - want.double()).abs().max()))
     return worst
