@@ -46,6 +46,7 @@ from torch.utils.flop_counter import register_flop_formula
 from ._build import CSRC, Entry
 
 _SOURCE = CSRC / "decode_attention.cu"
+_SOURCES = (_SOURCE,)
 # q k v cache_len, B T H Hk hd, scale, chunk splits, out partials
 _LAUNCH = {
     torch.float32: Entry(_SOURCE, "decode_attention_f32"),

@@ -22,6 +22,7 @@ import torch
 from ._build import CSRC, Entry, int32_device
 
 _SOURCE = CSRC / "elca_segsum.cu"
+_SOURCES = (_SOURCE,)
 _LAUNCH = Entry(_SOURCE, "elca_segsum_launch")  # ca mi par nd mj k out
 
 # the kernel's dense route (one block, no memset) takes a call of at most

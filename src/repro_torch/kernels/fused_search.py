@@ -31,6 +31,7 @@ from .shapes import INT_PAD
 _SEMANTICS = {"slca": 0, "elca": 1, "ca": 2}
 
 _SOURCE = CSRC / "fused_search.cu"
+_SOURCES = (_SOURCE,)
 # ids0 pid0 nd0 other_ids other_nd n0 other_n, rows m0 k1 mo semantics route,
 # keep_ids keep_mask ca ndo cnt sums ppos
 _LAUNCH = Entry(_SOURCE, "fused_search_launch")

@@ -21,6 +21,7 @@ import torch
 from ._build import CSRC, Entry, int32_device
 
 _SOURCE = CSRC / "intersect.cu"
+_SOURCES = (_SOURCE,)
 _LAUNCH = Entry(_SOURCE, "intersect_launch")  # a na q nq found pos
 _LISTS = Entry(_SOURCE, "intersect_lists_launch")  # buf table k n ca nd
 

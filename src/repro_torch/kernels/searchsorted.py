@@ -29,6 +29,7 @@ from torch.utils.flop_counter import register_flop_formula
 from ._build import CSRC, Entry, int32_device
 
 _SOURCE = CSRC / "searchsorted.cu"
+_SOURCES = (_SOURCE,)
 _LAUNCH = Entry(_SOURCE, "searchsorted_launch")  # a q rows m nq out
 
 LAUNCHES = 0  # kernel launches in this process (see module docstring)

@@ -1,9 +1,12 @@
 """State-space / linear-attention mixers: Mamba (S6) and RWKV-6 "Finch".
 
 The reference's ``repro.models.ssm`` in PyTorch.  Both are O(S) in
-sequence length.  Prefill and training run a Python loop over time where
-the reference runs ``lax.scan``; decode is one recurrent step against a
-fixed-size state, no KV growth.  The state stays float32 in every model.
+sequence length.  Each time recurrence is one registered op a call
+(``kernels/ssm_scan.py``: a hand-written kernel on the card that loops over
+time inside one launch, the plain step loop on the CPU) where the reference
+runs ``lax.scan``: prefill, decode (S = 1) and training alike, with a
+backward op of its own.  Decode is one recurrent step against a fixed-size
+state, no KV growth.  The state stays float32 in every model.
 
 Mamba follows the S6 selective-scan recurrence (discretised zero-order hold):
     h_t = exp(Δ_t ⊙ A) h_{t-1} + Δ_t B_t x_t ;   y_t = C_t h_t + D x_t
@@ -16,7 +19,8 @@ cast to the stream dtype before the scan and upcast in each step; its
 causal depthwise conv is a sum of ``d_conv`` shifted products in order plus
 the bias, in the stream dtype (no ``conv1d``).  ``ssm.time_chunk`` > 0
 checkpoints the recurrence chunk by chunk while gradients are recorded
-(the reference's ``jax.checkpoint`` over chunks).
+(the reference's ``jax.checkpoint`` over chunks): one op call a chunk under
+``torch.utils.checkpoint``.
 
 A cache's states are written in place, as the attention caches are, and
 the cache is returned too.
@@ -30,6 +34,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.dist import ctx as shard_ctx
+from repro_torch.kernels import ssm_scan
 
 from .config import ModelConfig, SSMConfig
 from .layers import RMSNorm, _param, dense_init
@@ -78,19 +83,6 @@ class Mamba(nn.Module):
         self.d_skip.data.fill_(1.0)
 
 
-def _mamba_steps(h, dt, bmat, cmat, xe, a):
-    """The recurrence over the time axis of [B, S, ·] inputs from state
-    ``h`` [B, E, N] (float32): (last state, y [B, S, E] float32)."""
-    ys = []
-    for t in range(xe.shape[1]):
-        # per-step upcast; the state and its math stay float32
-        dt32 = dt[:, t].float()
-        da = torch.exp(dt32[..., None] * a)  # [B,E,N]
-        h = da * h + (dt32 * xe[:, t].float())[..., None] * bmat[:, t].float()[:, None, :]
-        ys.append(torch.einsum("ben,bn->be", h, cmat[:, t].float()))
-    return h, torch.stack(ys, dim=1)
-
-
 def _mamba_scan(params: Mamba, xe, cfg: ModelConfig, h0):
     """xe: [B, S, E] post-conv activations; h0: [B, E, N] initial state.
     Returns (y [B, S, E] in xe's dtype, last state)."""
@@ -107,12 +99,12 @@ def _mamba_scan(params: Mamba, xe, cfg: ModelConfig, h0):
         h, parts = h0, []
         for i in range(0, s_len, chunk):
             sl = slice(i, i + chunk)
-            h, y = checkpoint(_mamba_steps, h, dt[:, sl], bmat[:, sl], cmat[:, sl],
+            y, h = checkpoint(ssm_scan.mamba_scan, h, dt[:, sl], bmat[:, sl], cmat[:, sl],
                               xe[:, sl], a, use_reentrant=False)
             parts.append(y)
         h_last, y = h, torch.cat(parts, dim=1)
     else:
-        h_last, y = _mamba_steps(h0, dt, bmat, cmat, xe, a)
+        y, h_last = ssm_scan.mamba_scan(h0, dt, bmat, cmat, xe, a)
     y = y + params.d_skip * xe.float()
     return y.to(xe.dtype), h_last
 
@@ -211,17 +203,6 @@ def _token_shift(x, last):
     return torch.cat([last[:, None, :], x[:, :-1, :]], dim=1)
 
 
-def _rwkv6_steps(state, r, k, v, w, u):
-    """The time-mix recurrence over [B, S, H, hd] float32 inputs from
-    ``state`` [B, H, hd, hd]: (last state, y [B, S, H, hd])."""
-    ys = []
-    for t in range(r.shape[1]):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]  # [B,H,hd,hd]
-        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t], state + u[..., None] * kv))
-        state = w[:, t, :, :, None] * state + kv
-    return state, torch.stack(ys, dim=1)
-
-
 def rwkv6_tm_apply(params: RWKV6TimeMix, x, cfg: ModelConfig, positions=None, cache=None,
                    causal=True):
     """x: [B,S,D]; cache: {"s":[B,H,hd,hd] float32, "last":[B,D]}."""
@@ -250,10 +231,10 @@ def rwkv6_tm_apply(params: RWKV6TimeMix, x, cfg: ModelConfig, positions=None, ca
     wraw = params.w0[None, None] + torch.einsum("bsf,fhk->bshk", wl, params.wlora_b).float()
     w = torch.exp(-torch.exp(wraw))  # [B,S,H,hd] in (0,1)
 
-    u = params.u_bonus[None]  # [1,H,hd]
     s0 = cache["s"] if cache is not None else torch.zeros((b, h, hd, hd), dtype=torch.float32,
                                                           device=x.device)
-    s_last, y = _rwkv6_steps(s0, r.float(), k.float(), v.float(), w, u)
+    # r, k, v in the stream dtype, upcast inside (the reference's astype)
+    y, s_last = ssm_scan.rwkv6_wkv(s0, r, k, v, w, params.u_bonus)
     # per-head RMS norm, then the gate
     y32 = y * torch.rsqrt(y.square().mean(dim=-1, keepdim=True) + 1e-5)
     y = (y32.reshape(b, s, h * hd) * params.ln_out.scale.float()).to(x.dtype)
