@@ -102,7 +102,11 @@ Phases (any failure exits non-zero, and no result line is printed):
      searchsorted launches > 0); (d) a gateway child (``launch_gateway``,
      process transport, fused; each shard process's own fused_search
      launches > 0, read from its ``/debug/heat``).  Every answer equals
-     ``scalar``;
+     ``scalar``.  Then ``examples/torch_quickstart.py`` in a process of its
+     own (``example_phase``): it exits 0, imports nothing of JAX or the JAX
+     package, gives each semantics the same ids on every backend and
+     index, and its fused_search, intersect and elca_segsum launches
+     (counted from 0 in that process) are > 0;
   11. first, one decode-attention call at the decode_32k cell's shape (B
      128, T 32,768) against its plain version, timed by CUDA events, by a
      profiled pass of 10 and beside ``scaled_dot_product_attention``; then
@@ -134,12 +138,17 @@ Phases (any failure exits non-zero, and no result line is printed):
      seeded state; (c) 4 gloo ranks sharing the card, mesh (2, 2) (9 heads
      over "model" 2: the positions route of ``dist/local.py``), two steps
      against one device, then the checkpoint's elastic restore onto mesh
-     (1, 4).  No kernel of the port lies on this path;
+     (1, 4); (c') the same ranks and mesh, DeepSeek's MLA + MoE layers at
+     reduced widths (float32, no token dropped) on local tensors
+     (``mla_local``, ``moe_local``), two steps against one device.  No
+     kernel of the port lies on this path;
   13. the MoE, MLA, Mamba and RWKV-6 blocks (``blocks_phase``): first
      the two scan kernels (``kernels/ssm_scan.py``), forward and backward,
      against their plain versions on seeded shapes (S = 1, S past and not
-     a multiple of their time tiles, a carried state, float32 and bf16;
-     two backward calls bit for bit equal); (a) DeepSeek-V2-Lite-16B whole (27 layers, MLA + 64 experts top-6 + 2
+     a multiple of their time tiles, a carried state, float32 and bf16,
+     and state and head sizes no kernel is built for, taken by the padded
+     route: N 4 and 12, hd 16 and 48; two backward calls bit for bit
+     equal); (a) DeepSeek-V2-Lite-16B whole (27 layers, MLA + 64 experts top-6 + 2
      shared, 15.7 B parameters) in bf16 with seeded weights, served through
      ``launch.serve`` as SmolLM is (8 x 1,024 + 64, plain and with the
      prefix DAG): prefill ms, decode tok/s, peak device memory; then the
@@ -3269,6 +3278,59 @@ TRAIN_TOL = 1e-4  # each metric, and each leaf's max |difference| over its max |
 TRAIN_SHARDED = dict(TRAIN_SMALL, batch=4)  # the 2 data ranks take 2 rows each
 
 
+# (c'): DeepSeek's MLA + MoE layers at reduced widths, float32, no token
+# dropped (capacity_factor E/k: the ranks route one group a data shard, one
+# device one group), on the same ranks and mesh: each rank its heads of MLA
+# and its columns of every expert (models/attention.py::mla_local,
+# models/moe.py::moe_local); tests/test_torch_arch_steps.py's MLA + MoE step
+TRAIN_MOE = dict(batch=8, seq=16, lr=1e-4, warmup=1, steps=10, optimizer="adamw")
+
+
+def train_moe_cfg():
+    from repro_torch.configs import get_config
+
+    cfg = get_config("deepseek-v2-lite-16b").reduced(
+        n_layers=2, scan_period=2, layer_pattern=(("mla", "swiglu"), ("mla", "moe")),
+        d_model=64, vocab=128, n_heads=4, n_kv_heads=4, dtype="float32")
+    return no_drops(cfg)
+
+
+def moe_steps(device: str, mesh=None):
+    """Two AdamW steps of ``train_moe_cfg`` on ``device`` (or a mesh): the
+    metrics and the state as numpy."""
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.convert import state_to_numpy
+
+    run = launcher.pieces(train_moe_cfg(), **TRAIN_MOE, device=device, mesh=mesh)
+    step, state = run.make_step(), run.fresh_state()
+    metrics = []
+    for s in range(2):
+        state, m = step(state, run.next_batch(s))
+        metrics.append({k: launcher.value(v) for k, v in m.items()})
+    return metrics, state_to_numpy(state)
+
+
+def moe_rank_runs(plan: dict) -> dict:
+    """A rank of (c'): two steps of the MLA + MoE config on ``plan["mesh"]``
+    held against the single-device state in ``plan["want"]``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.tree import unflatten_names
+
+    if plan["device_type"] == "cuda":
+        torch.cuda.set_device(0)
+    mesh = DeviceMesh(plan["device_type"], torch.arange(dist.get_world_size()).reshape(
+        plan["mesh"]), mesh_dim_names=("data", "model"))
+    t0 = time.perf_counter()
+    metrics, got = moe_steps(plan["device_type"], mesh)
+    with np.load(plan["want"]) as f:
+        want = unflatten_names({k: f[k] for k in f.files})
+    return {"metrics": metrics, "state_err": state_err(got, want),
+            "steps_s": time.perf_counter() - t0}
+
+
 def train_small_cfg():
     from repro_torch.configs import get_config
 
@@ -3569,6 +3631,32 @@ def train_phase(card: str) -> dict:
           f"{ranks[0]['restored_placed']['embed.table']}, wq "
           f"{ranks[0]['restored_placed']['blocks.0.mixer.wq']}) equal to the state "
           f"saved on every rank; {t_ranks:.1f} s")
+
+    # ---- (c') the MLA + MoE layers on local tensors, the same ranks ---- #
+    want_metrics, want = moe_steps(DEVICE)
+    work = tempfile.mkdtemp(prefix="chip-smoke-train-moe-")
+    try:
+        np.savez(Path(work) / "want.npz", **dict(flatten_with_names(want)))
+        plan = {"mesh": TRAIN_MESH, "device_type": DEVICE, "want": str(Path(work) / "want.npz")}
+        t0 = time.perf_counter()
+        ranks = run_dist_ranks(TRAIN_RANKS, "gloo", plan, moe_rank_runs)
+        t_ranks = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for r, res in enumerate(ranks):
+        errs = [metric_err(g, w) for g, w in zip(res["metrics"], want_metrics)]
+        if max(errs) > TRAIN_TOL or res["state_err"] > TRAIN_TOL:
+            raise AssertionError(f"train (c') rank {r}: metrics {errs}, state {res['state_err']}")
+    record["sharded_mla_moe"] = {"mesh": TRAIN_MESH, "ranks": ranks,
+                                 "want_metrics": want_metrics, "wall_s": t_ranks}
+    print(f"train (c'): {TRAIN_RANKS} gloo ranks sharing the card, mesh {TRAIN_MESH}, "
+          f"DeepSeek's MLA + MoE layers reduced (float32, no drops, batch "
+          f"{TRAIN_MOE['batch']} x {TRAIN_MOE['seq']}) on local tensors, 2 AdamW steps: loss "
+          f"{ranks[0]['metrics'][-1]['loss']:.6f} vs one device "
+          f"{want_metrics[-1]['loss']:.6f}, worst metric err "
+          f"{max(metric_err(g, w) for r in ranks for g, w in zip(r['metrics'], want_metrics)):.3g}"
+          f", worst state err {max(r['state_err'] for r in ranks):.3g} (limit {TRAIN_TOL}); "
+          f"{t_ranks:.1f} s")
     OUT_DIR.mkdir(exist_ok=True)
     with open(OUT_DIR / "chip_smoke_train.json", "w") as f:
         json.dump(record, f, indent=1)
@@ -4187,7 +4275,9 @@ class ScanRecorder:
 def scan_random_cases():
     """(label, name, inputs on the card) of (a): seeded shapes at both
     stream dtypes: S = 1, S past the kernels' time tiles and chunks and not
-    a multiple of them, a carried state, E not a multiple of a block."""
+    a multiple of them, a carried state, E not a multiple of a block, and
+    state and head sizes no kernel is built for (N 4, 12; hd 16, 48: the
+    padded route of ``kernels/ssm_scan.py``)."""
     import torch
 
     rng = np.random.default_rng(25)
@@ -4198,12 +4288,14 @@ def scan_random_cases():
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).removeprefix("torch.")
-        for b, s, e, n in ((2, 1, 256, 16), (2, 100, 200, 16), (1, 257, 384, 8), (3, 33, 96, 8)):
+        for b, s, e, n in ((2, 1, 256, 16), (2, 100, 200, 16), (1, 257, 384, 8), (3, 33, 96, 8),
+                           (2, 40, 96, 4), (1, 70, 160, 12)):  # N 4, 12: padded
             dt = (t((b, s, e), 0.1).abs() + 0.001).to(dtype)
             args = (t((b, e, n)), dt, t((b, s, n)).to(dtype), t((b, s, n)).to(dtype),
                     t((b, s, e)).to(dtype), -(t((e, n)).abs() + 0.1))
             cases.append((f"mamba B={b} S={s} E={e} N={n} {dn}", "mamba_scan", args))
-        for b, s, h, hd in ((2, 1, 4, 64), (2, 100, 3, 64), (1, 70, 4, 32), (3, 17, 2, 32)):
+        for b, s, h, hd in ((2, 1, 4, 64), (2, 100, 3, 64), (1, 70, 4, 32), (3, 17, 2, 32),
+                            (2, 40, 2, 16), (1, 21, 3, 48)):  # hd 16, 48: padded
             args = (t((b, h, hd, hd)), *(t((b, s, h, hd), 0.5).to(dtype) for _ in range(3)),
                     torch.exp(-torch.exp(t((b, s, h, hd), 0.5) - 2.0)), t((h, hd), 0.5))
             cases.append((f"rwkv6 B={b} S={s} H={h} hd={hd} {dn}", "rwkv6_wkv", args))
@@ -4460,6 +4552,61 @@ def blocks_phase(card: str) -> tuple[dict, list[dict]]:
                if name == "rwkv6_wkv" else {}),
         })
     return llama4, lines
+
+
+# --------------------------------------------------------------------------- #
+# The examples: examples/torch_quickstart.py on the card
+# --------------------------------------------------------------------------- #
+
+EXAMPLE = ROOT / "examples" / "torch_quickstart.py"
+EXAMPLE_TIMEOUT_S = 120
+EXAMPLE_KERNELS = ("fused_search", "intersect", "elca_segsum")  # its fused and chained routes
+# the example as __main__ in a process of its own, its launch counters set
+# to 0 first; then the counters and the foreign modules it imported
+EXAMPLE_RUNNER = """
+import json, runpy, sys
+from repro_torch.kernels import elca_segsum, fused_search, intersect
+mods = {"fused_search": fused_search, "intersect": intersect, "elca_segsum": elca_segsum}
+for m in mods.values():
+    m.LAUNCHES = 0
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
+print("EXAMPLE_RESULT", json.dumps({"launches": {k: m.LAUNCHES for k, m in mods.items()},
+                                    "foreign": foreign}))
+"""
+
+
+def example_phase() -> dict:
+    """``examples/torch_quickstart.py`` on the card in a process of its own:
+    it exits 0, imports nothing of JAX or the JAX package, every backend and
+    index gives each semantics' ids alike (``fused`` and ``chained`` through
+    their kernels), and each kernel of its routes launched; returns those
+    launches by kernel."""
+    import re
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", EXAMPLE_RUNNER, str(EXAMPLE)], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S)
+    if proc.returncode:
+        raise AssertionError(f"{EXAMPLE.name} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    out = proc.stdout
+    result = json.loads(out.split("EXAMPLE_RESULT", 1)[1])
+    for sem in ("slca", "elca"):
+        ids = re.findall(rf"^  {sem} (\S+) +(\S+) +-> nodes (\[.*\])$", out, re.M)
+        if len(ids) != 8 or len({i[2] for i in ids}) != 1:
+            raise AssertionError(f"{EXAMPLE.name}: {sem} ids differ across backends: {ids}")
+    if result["foreign"]:
+        raise AssertionError(f"{EXAMPLE.name} imported {result['foreign']}")
+    launches = result["launches"]
+    if not all(launches[k] > 0 for k in EXAMPLE_KERNELS):
+        raise AssertionError(f"{EXAMPLE.name}: a kernel did not launch: {launches}")
+    print(f"example: {EXAMPLE.relative_to(ROOT)} on the card, every backend and index alike "
+          f"on both semantics, launches {launches}, nothing of JAX imported; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 # --------------------------------------------------------------------------- #
@@ -4781,7 +4928,12 @@ def run_phases(card: str, kind: str, t_start: float, cli: dict) -> int:
         print(f"gateway phase done at {time.perf_counter() - t_start:.1f} s")
     finally:
         shutil.rmtree(path, ignore_errors=True)
+    with CLOCK.phase("example"):
+        example = example_phase()
+    print(f"example phase done at {time.perf_counter() - t_start:.1f} s")
     for line in search_lines:
+        if line["name"] in example:
+            line["example_launches"] = example[line["name"]]
         for phase in (dist, cluster, gateway):
             line.update(phase.get(line["name"], {}))
         line["max_abs_err"] = max(line["max_abs_err"],

@@ -21,7 +21,7 @@ divide the mesh dims is left as it is rather than padded.
 :func:`layout` is the other way: the cache-free forward (training, an
 encoder's forward) runs on the rank's local tensors with its collectives
 written out (``dist/local.py``), and only the sublayers without such a
-layout (MoE, MLA, Mamba, RWKV-6) meet DTensor, at the constraints above.
+layout (Mamba, RWKV-6) meet DTensor, at the constraints above.
 """
 from __future__ import annotations
 

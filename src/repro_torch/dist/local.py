@@ -6,9 +6,9 @@ with fixed collectives: the rank's rows of the batch (split over the data
 dims), whole over "model" between sublayers, and in each sublayer its
 share of the work.  DTensor's sharding propagation never picks this
 layout, and its view rules never meet a tensor sharded on two mesh dims;
-only the sublayers without a layout here (MoE, MLA, Mamba, RWKV-6) run on
-DTensors (:meth:`Local.region`), and the parameters and optimizer state
-stay DTensors placed by ``dist/sharding.py::param_specs``.
+only the sublayers without a layout here (Mamba, RWKV-6) run on DTensors
+(:meth:`Local.region`), and the parameters and optimizer state stay
+DTensors placed by ``dist/sharding.py::param_specs``.
 
 A replicated activation carries the whole gradient on every "model" rank,
 as Megatron-LM's tensor parallelism keeps it.  :class:`Local` gives the
@@ -27,7 +27,9 @@ forward its layout's pieces:
     the backward pass), and the whole axis from every rank's part (the
     gradient cut to this rank's part, or summed first where each rank's
     part of the work reads the whole);
-  * ``rows_sum``: a sum over the rows of every rank (the loss).
+  * ``rows_sum``: a sum over the rows of every rank (the loss);
+  * ``all_rows``: every rank's rows joined (the MoE where a rank's rows
+    hold no whole routing group), the gradient summed and cut back.
 
 Every collective is one of ``torch.ops._c10d_functional``'s (the functional
 collectives), which the dry-run's ``roofline/profile.py::TraceCounter``
@@ -205,11 +207,12 @@ class _Move(torch.autograd.Function):
 class Local:
     """One rank's share of the cache-free forward (module docstring):
     ``m`` ranks over "model", this one ``r``; ``rows`` the slice of the
-    batch this rank holds, as ``x``, a batch input, is placed."""
+    batch this rank holds, as ``x``, a batch input, is placed, one of
+    ``pieces`` slices."""
 
     def __init__(self, mesh=None, x: DTensor | None = None):
         self.mesh, self.whole_model = mesh, False
-        self.m, self.r, self.rows = 1, 0, slice(None)
+        self.m, self.r, self.rows, self.pieces = 1, 0, slice(None), 1
         self.placements, self._model, self._data = (), None, ()
         if mesh is None:
             return
@@ -226,6 +229,7 @@ class Local:
         for i, (n, p) in enumerate(zip(names, self.placements)):
             if isinstance(p, Shard):
                 piece = piece * mesh.size(i) + mesh.get_local_rank(n)
+                self.pieces *= mesh.size(i)
         b = x.to_local().shape[0]
         self.rows = slice(piece * b, (piece + 1) * b)
 
@@ -293,6 +297,15 @@ class Local:
         """The sum over the ranks' rows (the data dims that split them) of
         ``x``, a sum over this rank's rows; the gradient passed through."""
         return _Sum.apply(x, self._data) if self._data else x
+
+    def all_rows(self, x):
+        """Every rank's rows of ``x`` joined in batch order; each rank reads
+        them all, so the gradient is summed over the data dims that split
+        the rows and cut to this rank's (take its own back with
+        ``[self.rows]``)."""
+        for group in reversed(self._data):  # inner dims first: pod-major order
+            x = _Gather.apply(x, 0, True, group)
+        return x
 
     def split(self, x, dim: int):
         """This rank's part of axis ``dim`` of a replicated ``x``."""

@@ -45,6 +45,16 @@ for RWKV-6 (a sum over what is split comes out ``Partial``).  Each
 implementation checks the tensors it is given (``_check_*``): under DTensor
 those are a rank's local pieces.
 
+The ops take any state size N and head size hd, as the reference's
+``lax.scan`` does.  The kernels keep the state in registers, so each is
+compiled for a few sizes (``MAMBA_STATES``, ``RWKV_HEAD_DIMS``); on the card
+a size between them is zero-padded to the next one built, which is exact:
+Mamba's padded states start at 0 and get no input (B = 0), so they stay 0
+and add nothing to y (C = 0); RWKV-6's padded rows have r = k = u = 0 and
+its padded columns v = 0, so the padded state stays 0, and the padded
+columns of y are cut.  The gradients of the padded entries are dropped.
+Above the largest size built the CUDA launch raises, naming it.
+
 ``LAUNCHES`` counts op calls that launched a kernel, by op (one per call;
 the backward's second pass is part of its call).
 """
@@ -66,8 +76,8 @@ _MAMBA_BWD = {dt: Entry(_MAMBA_SOURCE, f"mamba_scan_bwd_{s}") for dt, s in _SUFF
 _RWKV = {dt: Entry(_RWKV_SOURCE, f"rwkv6_wkv_{s}") for dt, s in _SUFFIX.items()}
 _RWKV_BWD = {dt: Entry(_RWKV_SOURCE, f"rwkv6_wkv_bwd_{s}") for dt, s in _SUFFIX.items()}
 
-MAMBA_STATES = (8, 16)  # the state sizes N the Mamba kernel is built for
-RWKV_HEAD_DIMS = (32, 64)  # the head sizes the RWKV-6 kernel is built for
+MAMBA_STATES = (8, 16)  # the state sizes N the Mamba kernel is built for (others padded)
+RWKV_HEAD_DIMS = (32, 64)  # the head sizes the RWKV-6 kernel is built for (others padded)
 MAMBA_BLOCK = 128  # channels a Mamba block (kThreads in the source)
 MAMBA_CHUNK = 32  # steps between the Mamba backward's kept states (kChunk)
 RWKV_CHUNK = 16  # steps between the RWKV-6 backward's kept states (kChunk)
@@ -168,8 +178,8 @@ def _check_mamba(h0, dt, bm, cm, x, a) -> tuple[int, int, int, int]:
     for name, t in (("h0", h0), ("dt", dt), ("B", bm), ("C", cm), ("a", a)):
         if tuple(t.shape) != want[name]:
             raise ValueError(f"mamba_scan: {name} must be {want[name]}, got {tuple(t.shape)}")
-    if n not in MAMBA_STATES:
-        raise ValueError(f"mamba_scan: the state size must be one of {MAMBA_STATES}, got {n}")
+    if n < 1:
+        raise ValueError("mamba_scan: needs a state size of at least 1")
     if s < 1:
         raise ValueError("mamba_scan: needs at least one step")
     if x.dtype not in _SUFFIX:
@@ -190,8 +200,8 @@ def _check_rwkv(s0, r, k, v, w, u) -> tuple[int, int, int, int]:
     for name, t in (("s0", s0), ("k", k), ("v", v), ("w", w), ("u", u)):
         if tuple(t.shape) != want[name]:
             raise ValueError(f"rwkv6_wkv: {name} must be {want[name]}, got {tuple(t.shape)}")
-    if hd not in RWKV_HEAD_DIMS:
-        raise ValueError(f"rwkv6_wkv: head_dim must be one of {RWKV_HEAD_DIMS}, got {hd}")
+    if hd < 1:
+        raise ValueError("rwkv6_wkv: needs a head_dim of at least 1")
     if s < 1:
         raise ValueError("rwkv6_wkv: needs at least one step")
     if r.dtype not in _SUFFIX:
@@ -214,14 +224,42 @@ def _check_grads(what: str, grads: dict) -> None:
 # --------------------------------------------------------------------------- #
 
 
+def _built(what: str, size: int, built: tuple[int, ...]) -> int:
+    """The smallest size the kernel is built for that holds ``size``."""
+    for k in built:
+        if size <= k:
+            return k
+    raise ValueError(f"{what}: the kernel takes at most {built[-1]}, got {size}")
+
+
+def _pad(t, to: int, dims=(-1,)):
+    """``t`` with each axis of ``dims`` zero-padded at its end to ``to``."""
+    widths = [0] * (2 * t.dim())
+    for d in dims:
+        widths[2 * (-d - 1) + 1] = to - t.shape[d]
+    return torch.nn.functional.pad(t, widths) if any(widths) else t
+
+
+def _cut(t, n: int, dims=(-1,)):
+    """``t`` cut to its first ``n`` entries on each axis of ``dims``."""
+    if all(t.shape[d] == n for d in dims):
+        return t
+    index = [slice(None)] * t.dim()
+    for d in dims:
+        index[d] = slice(0, n)
+    return t[tuple(index)].contiguous()
+
+
 def _mamba_launch(h0, dt, bm, cm, x, a):
     b, s, e, n = _check_mamba(h0, dt, bm, cm, x, a)
-    y, h_last = _empty((b, s, e), _F32, x), _empty((b, e, n), _F32, x)
+    nk = _built("mamba_scan: the state size", n, MAMBA_STATES)
+    h0, bm, cm, a = (_pad(t, nk) for t in (h0, bm, cm, a))
+    y, h_last = _empty((b, s, e), _F32, x), _empty((b, e, nk), _F32, x)
     _MAMBA[x.dtype](x.device.index, h0.data_ptr(), dt.data_ptr(), bm.data_ptr(),
-                    cm.data_ptr(), x.data_ptr(), a.data_ptr(), b, s, e, n, y.data_ptr(),
+                    cm.data_ptr(), x.data_ptr(), a.data_ptr(), b, s, e, nk, y.data_ptr(),
                     h_last.data_ptr())
     LAUNCHES["mamba_scan"] += 1
-    return y, h_last
+    return y, _cut(h_last, n)
 
 
 def _mamba_cpu(h0, dt, bm, cm, x, a):
@@ -239,22 +277,25 @@ def _mamba_bwd_check(gy, gh, h0, dt, bm, cm, x, a):
 
 def _mamba_bwd_launch(gy, gh, h0, dt, bm, cm, x, a):
     b, s, e, n = _mamba_bwd_check(gy, gh, h0, dt, bm, cm, x, a)
+    nk = _built("mamba_scan_backward: the state size", n, MAMBA_STATES)
+    gh, h0, bm, cm, a = (_pad(t, nk) for t in (gh, h0, bm, cm, a))
     nblk = -(-e // MAMBA_BLOCK)
     nchunk = -(-s // MAMBA_CHUNK)
-    dh0 = _empty((b, e, n), _F32, x)
+    dh0 = _empty((b, e, nk), _F32, x)
     ddt, dx = torch.empty_like(dt), torch.empty_like(x)
-    dbc, da = _empty((b, s, 2 * n), _F32, x), _empty((e, n), _F32, x)
-    part_bc = _empty((b, s, nblk, 2 * n), _F32, x)
-    part_a = _empty((b, e, n), _F32, x)
-    ckpt = _empty((b, nchunk, e, n), _F32, x)
+    dbc, da = _empty((b, s, 2 * nk), _F32, x), _empty((e, nk), _F32, x)
+    part_bc = _empty((b, s, nblk, 2 * nk), _F32, x)
+    part_a = _empty((b, e, nk), _F32, x)
+    ckpt = _empty((b, nchunk, e, nk), _F32, x)
     _MAMBA_BWD[x.dtype](x.device.index, gy.data_ptr(), gh.data_ptr(), h0.data_ptr(),
                         dt.data_ptr(), bm.data_ptr(), cm.data_ptr(), x.data_ptr(),
-                        a.data_ptr(), b, s, e, n, dh0.data_ptr(), ddt.data_ptr(),
+                        a.data_ptr(), b, s, e, nk, dh0.data_ptr(), ddt.data_ptr(),
                         dx.data_ptr(), dbc.data_ptr(), da.data_ptr(), part_bc.data_ptr(),
                         part_a.data_ptr(), ckpt.data_ptr())
     LAUNCHES["mamba_scan_backward"] += 1
-    db, dc = dbc[..., :n].contiguous().to(bm.dtype), dbc[..., n:].contiguous().to(cm.dtype)
-    return dh0, ddt, db, dc, dx, da
+    db = dbc[..., :n].contiguous().to(bm.dtype)
+    dc = dbc[..., nk:nk + n].contiguous().to(cm.dtype)
+    return _cut(dh0, n), ddt, db, dc, dx, _cut(da, n)
 
 
 def _mamba_bwd_cpu(gy, gh, h0, dt, bm, cm, x, a):
@@ -264,11 +305,14 @@ def _mamba_bwd_cpu(gy, gh, h0, dt, bm, cm, x, a):
 
 def _rwkv_launch(s0, r, k, v, w, u):
     b, s, h, hd = _check_rwkv(s0, r, k, v, w, u)
-    y, s_last = _empty((b, s, h, hd), _F32, r), _empty((b, h, hd, hd), _F32, r)
+    hk = _built("rwkv6_wkv: head_dim", hd, RWKV_HEAD_DIMS)
+    s0 = _pad(s0, hk, (-1, -2))
+    r, k, v, w, u = (_pad(t, hk) for t in (r, k, v, w, u))
+    y, s_last = _empty((b, s, h, hk), _F32, r), _empty((b, h, hk, hk), _F32, r)
     _RWKV[r.dtype](r.device.index, s0.data_ptr(), r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   w.data_ptr(), u.data_ptr(), b, s, h, hd, y.data_ptr(), s_last.data_ptr())
+                   w.data_ptr(), u.data_ptr(), b, s, h, hk, y.data_ptr(), s_last.data_ptr())
     LAUNCHES["rwkv6_wkv"] += 1
-    return y, s_last
+    return _cut(y, hd), _cut(s_last, hd, (-1, -2))
 
 
 def _rwkv_cpu(s0, r, k, v, w, u):
@@ -286,19 +330,22 @@ def _rwkv_bwd_check(gy, gs, s0, r, k, v, w, u):
 
 def _rwkv_bwd_launch(gy, gs, s0, r, k, v, w, u):
     b, s, h, hd = _rwkv_bwd_check(gy, gs, s0, r, k, v, w, u)
+    hk = _built("rwkv6_wkv_backward: head_dim", hd, RWKV_HEAD_DIMS)
+    gs, s0 = (_pad(t, hk, (-1, -2)) for t in (gs, s0))
+    gy, r, k, v, w, u = (_pad(t, hk) for t in (gy, r, k, v, w, u))
     nchunk = -(-s // RWKV_CHUNK)
-    ds0 = _empty((b, h, hd, hd), _F32, r)
+    ds0 = _empty((b, h, hk, hk), _F32, r)
     dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
-    dw, du = _empty((b, s, h, hd), _F32, r), _empty((h, hd), _F32, r)
-    part_u = _empty((b, h, hd), _F32, r)
-    ckpt = _empty((b, h, nchunk, hd, hd), _F32, r)
+    dw, du = _empty((b, s, h, hk), _F32, r), _empty((h, hk), _F32, r)
+    part_u = _empty((b, h, hk), _F32, r)
+    ckpt = _empty((b, h, nchunk, hk, hk), _F32, r)
     _RWKV_BWD[r.dtype](r.device.index, gy.data_ptr(), gs.data_ptr(), s0.data_ptr(),
                        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-                       b, s, h, hd, ds0.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+                       b, s, h, hk, ds0.data_ptr(), dr.data_ptr(), dk.data_ptr(),
                        dv.data_ptr(), dw.data_ptr(), du.data_ptr(), part_u.data_ptr(),
                        ckpt.data_ptr())
     LAUNCHES["rwkv6_wkv_backward"] += 1
-    return ds0, dr, dk, dv, dw, du
+    return (_cut(ds0, hd, (-1, -2)), *(_cut(t, hd) for t in (dr, dk, dv, dw, du)))
 
 
 def _rwkv_bwd_cpu(gy, gs, s0, r, k, v, w, u):

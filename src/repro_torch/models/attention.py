@@ -22,7 +22,8 @@ point) and attends with the absorbed scores: ``q_nope·W_uk`` against the
 latent plus ``q_rope·k_rope``, each product in the activation dtype, added
 in float32, the softmax in float32; the values come from the latent and
 ``W_uv``.  Its decode step runs the same code over the cache (the
-reference's MLA does not reach its decode kernel either).  Both mixers
+reference's MLA does not reach its decode kernel either); its cache-free
+forward runs on one rank's share under a mesh (:func:`mla_local`).  Both mixers
 write a prefill's or decode step's new rows into the caller's cache
 tensors in place.
 """
@@ -260,6 +261,88 @@ class MLA(nn.Module):
             w.data.copy_(dense_init(gen, d_in, w.numel() // d_in, w.dtype).reshape(w.shape))
 
 
+def _krope(x, w_krope, positions, theta: float):
+    """The shared rope key [B, S, rd] of ``x``."""
+    krope = torch.einsum("bsd,dr->bsr", x, w_krope)[:, :, None, :]
+    return apply_rope(krope, positions, theta)[:, :, 0]
+
+
+def _mla_attend(q, positions, latent, krope, mask, w_uk, w_uv, cfg: ModelConfig, dtype):
+    """MLA's absorbed attention of the queries ``q`` [B, S, H, nope+rope]
+    (at ``positions``, their rope half not yet rotated) over the keys'
+    ``latent`` [B, T, R] and ``krope`` [B, T, rd] under ``mask`` [B, S, T]:
+    score = q_nope·(W_uk·latent) + q_rope·k_rope, W_uk folded into q; the
+    values from the latent, W_uv on the output side.  Returns [B, S, H, vd]."""
+    m: MLAConfig = cfg.mla
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, w_uk)  # [B,S,H,R]
+    logits = torch.einsum("bshr,btr->bhst", q_lat, latent).float()
+    logits = logits + torch.einsum("bshk,btk->bhst", q_rope, krope).float()
+    logits = logits / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    logits = logits + torch.where(mask[:, None], 0.0, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    ctx = torch.einsum("bhst,btr->bshr", probs, latent)  # [B,S,H,R]
+    return torch.einsum("bshr,rhk->bshk", ctx, w_uv)  # [B,S,H,vd]
+
+
+def _key_mask(t: int, positions, causal: bool):
+    """[B, S, t]: key index at most the query's position (or every key)."""
+    if not causal:
+        return torch.ones((*positions.shape, t), dtype=torch.bool, device=positions.device)
+    return torch.arange(t, device=positions.device)[None, None, :] <= positions[:, :, None]
+
+
+def mla_local(params: MLA, x, cfg: ModelConfig, positions, causal: bool, lay):
+    """Cache-free MLA (training, an encoder's forward) of a normed input on
+    one rank's share, ``lay`` a ``dist.local.Local`` (x [b, S, D] the rank's
+    rows, whole; ``positions`` [b, S]).  Two routes, as :func:`gqa_local`:
+
+      * heads, where "model" divides the heads: the rank's heads of ``wq``,
+        ``w_uk`` and ``w_uv``, ``wo``'s rows of those heads and one
+        all-reduce of the output.  Every head reads the whole latent and
+        rope key: each rank projects them for its part of the positions
+        (where "model" divides them; else whole) and all-gathers them;
+      * positions, where it does not: the rank's query positions against
+        every key, the latent and rope key projected for its positions and
+        all-gathered, the output all-gathered; the weights whole.
+
+    Where "model" divides neither, every rank computes the whole."""
+    h, s, m = cfg.n_heads, x.shape[1], lay.m
+    heads = h % m == 0
+    if not heads and s % m:
+        lay, m, heads = lay.whole(), 1, True
+    sl = s // m
+    p0 = lay.r * sl
+    dtype = x.dtype
+    if heads:
+        x = lay.enter(x)
+        w_dkv, w_krope = (lay.weight(w, partial=True) for w in (params.w_dkv, params.w_krope))
+        if m > 1 and s % m == 0:  # this rank's positions of the keys, gathered
+            xp, pp = x[:, p0:p0 + sl], positions[:, p0:p0 + sl]
+            latent = lay.gather(torch.einsum("bsd,dr->bsr", xp, w_dkv), 1, partial=True)
+            krope = lay.gather(_krope(xp, w_krope, pp, cfg.rope_theta), 1, partial=True)
+        else:
+            latent = torch.einsum("bsd,dr->bsr", x, w_dkv)
+            krope = _krope(x, w_krope, positions, cfg.rope_theta)
+        q = torch.einsum("bsd,dhk->bshk", x, lay.weight(params.wq, 1))
+        out = _mla_attend(q, positions, latent, krope, _key_mask(s, positions, causal),
+                          lay.weight(params.w_uk, 1), lay.weight(params.w_uv, 1), cfg, dtype)
+        return lay.leave(torch.einsum("bshk,hkd->bsd", out, lay.weight(params.wo, 0)))
+    # positions
+    x = lay.split(x, 1)
+    positions = positions[:, p0:p0 + sl]
+    wq, w_dkv, w_krope, w_uk, w_uv, wo = (
+        lay.weight(w, partial=True) for w in (params.wq, params.w_dkv, params.w_krope,
+                                              params.w_uk, params.w_uv, params.wo))
+    latent = lay.gather(torch.einsum("bsd,dr->bsr", x, w_dkv), 1, partial=True)
+    krope = lay.gather(_krope(x, w_krope, positions, cfg.rope_theta), 1, partial=True)
+    q = torch.einsum("bsd,dhk->bshk", x, wq)
+    out = _mla_attend(q, positions, latent, krope, _key_mask(s, positions, causal),
+                      w_uk, w_uv, cfg, dtype)
+    return lay.gather(torch.einsum("bshk,hkd->bsd", out, wo), 1, partial=False)
+
+
 def mla_apply(
     params: MLA,
     x,  # [B, S, D]
@@ -268,15 +351,12 @@ def mla_apply(
     cache: dict | None = None,  # {"latent":[B,T,R], "krope":[B,T,rd], "len": int}
     causal: bool = True,
 ):
-    m: MLAConfig = cfg.mla
-    b, s, _ = x.shape
+    """MLA on DTensors (prefill and decode against a cache, and the
+    cache-free forward outside the explicit layout)."""
+    s = x.shape[1]
     q = torch.einsum("bsd,dhk->bshk", x, params.wq)
-    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-
     latent = torch.einsum("bsd,dr->bsr", x, params.w_dkv)  # [B,S,R]
-    krope = torch.einsum("bsd,dr->bsr", x, params.w_krope)[:, :, None, :]
-    krope = apply_rope(krope, positions, cfg.rope_theta)[:, :, 0]  # [B,S,rd]
+    krope = _krope(x, params.w_krope, positions, cfg.rope_theta)  # [B,S,rd]
 
     if cache is not None:
         start = cache["len"]
@@ -292,24 +372,11 @@ def mla_apply(
         if causal:
             mask = mask & (kpos <= positions[:, :, None])
     else:
-        latent_all, krope_all = latent, krope
-        new_cache = None
-        if causal:
-            mask = torch.arange(s, device=x.device)[None, None, :] <= positions[:, :, None]
-        else:
-            mask = torch.ones((b, s, s), dtype=torch.bool, device=x.device)
+        latent_all, krope_all, new_cache = latent, krope, None
+        mask = _key_mask(s, positions, causal)
 
-    # absorbed attention: score = q_nope·(W_uk·latent) + q_rope·k_rope,
-    # W_uk folded into q (q_lat [B,S,H,R])
-    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, params.w_uk)
-    logits = torch.einsum("bshr,btr->bhst", q_lat, latent_all).float()
-    logits = logits + torch.einsum("bshk,btk->bhst", q_rope, krope_all).float()
-    logits = logits / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
-    logits = logits + torch.where(mask[:, None], 0.0, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    # values from the latent, W_uv on the output side
-    ctx = torch.einsum("bhst,btr->bshr", probs, latent_all)  # [B,S,H,R]
-    v_ctx = torch.einsum("bshr,rhk->bshk", ctx, params.w_uv)  # [B,S,H,vd]
+    v_ctx = _mla_attend(q, positions, latent_all, krope_all, mask, params.w_uk, params.w_uv,
+                        cfg, x.dtype)
     y = torch.einsum("bshk,hkd->bsd", v_ctx, params.wo)
     return y, new_cache
 

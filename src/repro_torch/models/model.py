@@ -60,6 +60,7 @@ from .attention import (
     gqa_local,
     mla_apply,
     mla_cache_init,
+    mla_local,
 )
 from .config import ModelConfig
 from .layers import (
@@ -74,7 +75,7 @@ from .layers import (
     torch_dtype,
     unembed,
 )
-from .moe import MoE, moe_apply
+from .moe import MoE, moe_apply, moe_local
 
 # mixer kind -> (module, apply, cache init); the cache inits of the
 # attention mixers take max_len, the recurrent ones do not
@@ -85,6 +86,8 @@ _MIXERS = {
     "rwkv6": (ssm.RWKV6TimeMix, ssm.rwkv6_tm_apply, ssm.rwkv6_tm_cache_init),
 }
 _FFNS = ("swiglu", "relu2", "gelu", "moe", "rwkv6_cm", "none")
+# the mixers with their cache-free layout written out (``dist/local.py``)
+_LOCAL_MIXERS = {"gqa": gqa_local, "mla": mla_local}
 
 
 def _check_kinds(kinds: tuple[str, str]) -> None:
@@ -192,13 +195,13 @@ def _normed(norm: RMSNorm, x, eps: float, lay):
 
 def _block_local(block: Block, x, cfg, positions, causal, lay):
     """A block without a cache on this rank's rows ``x`` (``lay``, a
-    ``dist.local.Local``; ``positions`` [B, S] of every row): GQA and the
-    dense MLPs with their layout written out, the other sublayers on
-    DTensors at the reference's constraints (``lay.region``)."""
+    ``dist.local.Local``; ``positions`` [B, S] of every row): GQA, MLA, the
+    MoE and the dense MLPs with their layout written out, the recurrent
+    sublayers on DTensors at the reference's constraints (``lay.region``)."""
     eps = cfg.norm_eps
-    if block.mixer_kind == "gqa":
-        x = x + gqa_local(block.mixer, _normed(block.norm1, x, eps, lay), cfg,
-                          positions[lay.rows], causal, lay)
+    if block.mixer_kind in _LOCAL_MIXERS:
+        x = x + _LOCAL_MIXERS[block.mixer_kind](
+            block.mixer, _normed(block.norm1, x, eps, lay), cfg, positions[lay.rows], causal, lay)
     else:
         mixer = _MIXERS[block.mixer_kind][1]
         x = x + lay.region(x, lambda xd: mixer(block.mixer, block.norm1(xd, eps), cfg,
@@ -207,13 +210,10 @@ def _block_local(block: Block, x, cfg, positions, causal, lay):
         return x
     if block.ffn_kind in _DENSE_FFNS:
         return x + mlp_local(block.ffn, _normed(block.norm2, x, eps, lay), lay)
-    def ffn(xd):
-        h = block.norm2(xd, eps)
-        if block.ffn_kind == "moe":
-            return moe_apply(block.ffn, h, cfg)
-        return ssm.rwkv6_cm_apply(block.ffn, h, cfg, None)[0]
-
-    return x + lay.region(x, ffn)
+    if block.ffn_kind == "moe":
+        return x + moe_local(block.ffn, _normed(block.norm2, x, eps, lay), cfg, lay)
+    return x + lay.region(x, lambda xd: ssm.rwkv6_cm_apply(block.ffn, block.norm2(xd, eps),
+                                                           cfg, None)[0])
 
 
 def _vocab_part(lay, vocab: int):

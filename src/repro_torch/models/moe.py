@@ -22,9 +22,13 @@ are a SwiGLU of ``d_ff_expert · num_shared`` added densely.
 no order, so the top k come from a stable descending sort, which keeps the
 lower index first; the dispatch order is a stable argsort, as the
 reference's.  The expert products stay ``torch.einsum``: the reference
-computes them in XLA, outside any Pallas kernel.  Under a mesh every
-reshape of the token or expert tensors is pinned on both sides
-(``_reshape``).
+computes them in XLA, outside any Pallas kernel.
+
+Two entry points.  :func:`moe_apply` runs on DTensors (the steps with a
+cache); under a mesh every reshape of the token or expert tensors is
+pinned on both sides (``_reshape``).  :func:`moe_local` is the cache-free
+forward on one rank's share (``dist/local.py``): the rank routes the
+groups its rows hold and computes its columns of every expert.
 """
 from __future__ import annotations
 
@@ -91,11 +95,16 @@ def _route(params: MoE, xg: torch.Tensor, m: MoEConfig, capacity: int):
       stok  [G, Tg*k]   token index per sorted entry
     Index tensors are int64 (what ``torch.gather`` takes).
     """
-    g, tg, _ = xg.shape
+    logits = torch.einsum("gtd,de->gte", xg.float(), params.router.float())
+    return _route_logits(logits, m, capacity)
+
+
+def _route_logits(logits: torch.Tensor, m: MoEConfig, capacity: int):
+    """:func:`_route` from the router's float32 logits [G, Tg, E]."""
+    g, tg, _ = logits.shape
     k, n_exp = m.top_k, m.num_experts
     tk = tg * k
-    dev = xg.device
-    logits = torch.einsum("gtd,de->gte", xg.float(), params.router.float())
+    dev = logits.device
     probs = torch.softmax(logits, dim=-1)
     # lax.top_k: the k largest, ties to the lower index (module docstring)
     sorted_probs, sorted_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -174,3 +183,65 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if m.num_shared:
         y = y + _reshape(params.shared(_reshape(xg, groups * tg, d)), groups, tg, d)
     return _reshape(y, b, s, d)
+
+
+def moe_local(params: MoE, x: torch.Tensor, cfg: ModelConfig, lay) -> torch.Tensor:
+    """:func:`moe_apply` of a normed input on one rank's share, ``lay`` a
+    ``dist.local.Local`` (x [b, S, D] the rank's rows, whole over "model").
+
+    The routing is the reference's: ``dist.ctx.moe_groups`` of the whole
+    microbatch's tokens, the capacity of a group and the float32 router.
+    Groups are runs of whole rows, one per data shard, so the rank routes
+    the groups its rows hold; where its rows hold no whole group (one group
+    over rows split across ranks), it routes every row and keeps its own.
+    The expert banks [E, D, F] are split over "model" on F, as the dense MLP
+    (``mlp_local``): each rank computes its columns of every expert's gate
+    and up and the matching rows of ``w_down``, the shared experts the same
+    way, and one all-reduce adds the output.  The router's logits are
+    computed for this rank's part of the tokens and all-gathered, so each
+    rank computes its share of them too.  Every gradient into ``x`` is a
+    partial sum over "model" (``lay.enter`` adds them)."""
+    m: MoEConfig = cfg.moe
+    if params.w_up.shape[-1] % lay.m or (m.num_shared and params.shared.w_up.shape[-1] % lay.m):
+        lay = lay.whole()
+    b, s, _ = x.shape
+    groups = shard_ctx.moe_groups(b * lay.pieces * s, m.num_experts)
+    if groups % lay.pieces:
+        return _moe_groups(params, lay.all_rows(x), cfg, lay, groups)[lay.rows]
+    return _moe_groups(params, x, cfg, lay, groups // lay.pieces)
+
+
+def _moe_groups(params: MoE, x, cfg: ModelConfig, lay, groups: int):
+    """:func:`moe_local` of rows ``x`` cut into ``groups`` routing groups."""
+    m: MoEConfig = cfg.moe
+    b, s, d = x.shape
+    tg = b * s // groups
+    x = lay.enter(x)
+    xg = x.reshape(groups, tg, d)
+    capacity = capacity_of(tg, m)
+
+    # the router on this rank's part of the tokens, its logits gathered
+    router = lay.weight(params.router, partial=True).float()
+    flat = xg.reshape(groups * tg, d)
+    part = flat.shape[0] // lay.m
+    if lay.m > 1 and flat.shape[0] % lay.m == 0:
+        logits = flat[lay.r * part:(lay.r + 1) * part].float() @ router
+        logits = lay.gather(logits, 0, partial=True)
+    else:
+        logits = flat.float() @ router
+    take, in_use, slot, inv, sgate, stok = _route_logits(
+        logits.reshape(groups, tg, m.num_experts), m, capacity)
+
+    h = _rows(_rows(xg, stok), take.reshape(groups, -1))
+    h = h.reshape(groups, m.num_experts, capacity, d) * in_use[..., None].to(x.dtype)
+    gated = F.silu(torch.einsum("gecd,edf->gecf", h, lay.weight(params.w_gate, 2)))
+    up = torch.einsum("gecd,edf->gecf", h, lay.weight(params.w_up, 2))
+    out_e = torch.einsum("gecf,efd->gecd", gated * up, lay.weight(params.w_down, 1))
+    contrib = _rows(out_e.reshape(groups, m.num_experts * capacity, d), slot)
+    contrib = contrib * sgate[..., None].to(contrib.dtype)
+    y = _rows(contrib, inv).reshape(groups, tg, m.top_k, d).sum(dim=2)
+    if m.num_shared:
+        sh = params.shared
+        y = y + sh.apply_with(flat, lay.weight(sh.w_up, 1), lay.weight(sh.w_down, 0),
+                              lay.weight(sh.w_gate, 1)).reshape(groups, tg, d)
+    return lay.leave(y.reshape(b, s, d))

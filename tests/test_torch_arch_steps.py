@@ -21,10 +21,15 @@ the initial value staying within 10 x the summed learning rate (Adafactor
 normalises the noise into steps of about lr; AdamW's eps keeps them far
 smaller, and its router still equals the reference's to 1e-4).
 
-Then one MoE train step sharded on a (2, 2) mesh, 4 gloo CPU ranks
+Then MoE train steps sharded on a (2, 2) mesh, 4 gloo CPU ranks
 (``test_torch_train_dist.py``'s ranks and checks), top-2 routing,
-against one device:
-the MoE routes in two groups there (one per data shard) and in one on a
+against one device: llama4's GQA + MoE period, and DeepSeek's MLA + MoE
+layers (each rank its heads of MLA, its columns of every expert:
+``models/attention.py::mla_local``, ``models/moe.py::moe_local``), and
+DeepSeek's layers again with 16 experts over 2-token rows, where the
+tokens are too few for a group a data shard (one group: each rank routes
+every row, ``dist.local.Local.all_rows``).
+The MoE routes in two groups there (one per data shard) and in one on a
 single device, so the two agree where no token is dropped
 (``capacity_factor = E/k``, C >= Tg).
 """
@@ -127,8 +132,29 @@ def moe_cfg():
     return no_drops(dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, top_k=2)))
 
 
-def moe_job(shape, device_type):
-    """Two sharded steps of ``moe_cfg`` on mesh ``shape``; what each rank reports."""
+def mla_moe_cfg():
+    """DeepSeek's MLA + MoE layers (``PATTERNS``) at test_torch_train_dist's
+    widths, no drops."""
+    return no_drops(configs("deepseek-v2-lite-16b", d_model=64, vocab=128, n_heads=4,
+                            n_kv_heads=4)[1])
+
+
+def all_rows_cfg():
+    """``mla_moe_cfg`` with 16 experts (run on 2-token rows: one group)."""
+    cfg = mla_moe_cfg()
+    return no_drops(dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, num_experts=16)))
+
+
+MOE_CFGS = {  # arch -> (config, the steps' pieces)
+    "llama4": (moe_cfg, MOE_TRAIN),
+    "deepseek": (mla_moe_cfg, MOE_TRAIN),
+    "deepseek_all_rows": (all_rows_cfg, dict(MOE_TRAIN, seq=2)),
+}
+
+
+def moe_job(shape, device_type, arch="llama4"):
+    """Two sharded steps of ``MOE_CFGS[arch]`` on mesh ``shape``; what each
+    rank reports."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -137,10 +163,11 @@ def moe_job(shape, device_type):
 
     mesh = DeviceMesh(device_type, torch.arange(dist.get_world_size()).reshape(shape),
                       mesh_dim_names=("data", "model"))
+    make_cfg, train = MOE_CFGS[arch]
+    cfg = make_cfg()
     with shard_ctx.use(mesh):
-        groups = shard_ctx.moe_groups(MOE_TRAIN["batch"] * MOE_TRAIN["seq"],
-                                      moe_cfg().moe.num_experts)
-    run = launcher.pieces(moe_cfg(), **MOE_TRAIN, device=device_type, mesh=mesh)
+        groups = shard_ctx.moe_groups(train["batch"] * train["seq"], cfg.moe.num_experts)
+    run = launcher.pieces(cfg, **train, device=device_type, mesh=mesh)
     step, state = run.make_step(), run.fresh_state()
     metrics = []
     for s in range(2):
@@ -170,3 +197,33 @@ def test_moe_step_on_a_2x2_mesh_equals_one_device(tmp_path):
     # axis (F), as the reference's do; the activations' experts go over
     # "model" by the constraint (dist.ctx.constrain_experts)
     assert results[0]["placed"]["blocks.1.ffn.w_gate"] == (Replicate(), Shard(2))
+
+
+def moe_jobs(shape, device_type, archs):
+    """``moe_job`` of each of ``archs`` on the same ranks."""
+    return {arch: moe_job(shape, device_type, arch) for arch in archs}
+
+
+def test_mla_moe_step_on_a_2x2_mesh_equals_one_device(tmp_path):
+    """DeepSeek's MLA + MoE layers on local tensors (4 heads and the
+    experts' columns over "model" 2), against one device; with a group a
+    data shard, and with one group over every row."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch import train as launcher
+
+    archs = {"deepseek": 2, "deepseek_all_rows": 1}  # -> routing groups on the mesh
+    results = run_ranks(4, "gloo", moe_jobs, ((2, 2), "cpu", list(archs)), tmp_path / "ranks")
+    for arch, groups in archs.items():
+        make_cfg, train = MOE_CFGS[arch]
+        run = launcher.pieces(make_cfg(), **train, device="cpu")
+        step, state = run.make_step(), run.fresh_state()
+        want = []
+        for s in range(2):
+            state, m = step(state, run.next_batch(s))
+            want.append({k: float(v) for k, v in m.items()})
+        got = [rank[arch] for rank in results]
+        check_sharded(got, want, state_to_numpy(state))
+        assert got[0]["groups"] == groups, arch
+        assert got[0]["placed"]["blocks.0.mixer.wq"] == (Replicate(), Shard(0))  # [64, 4, 48]
+        assert got[0]["placed"]["blocks.1.ffn.w_gate"] == (Replicate(), Shard(2))

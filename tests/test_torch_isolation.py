@@ -49,7 +49,9 @@ _FORBIDDEN = re.compile(
 
 
 def test_no_jax_or_reference_imports_in_port_sources():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) == 7
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", *examples]
     assert len(files) > 20
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())

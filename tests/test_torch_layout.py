@@ -4,9 +4,13 @@
   ("pod", "data", "model") = (2, 2, 2), at 1 and 2 microbatches, for a
   config whose heads "model" divides (reduced SmolLM, 4 heads, 2 KV heads:
   the heads route, its KV heads or its columns of each KV head) and one
-  whose heads it does not (3 heads: the positions route).  The ranks'
-  matrix-product FLOPs together are at most 1.05 x one device's (they are
-  equal: each rank computes its share).
+  whose heads it does not (3 heads: the positions route), and for reduced
+  DeepSeek's MLA + MoE layer with 4 heads (MLA's heads route) and with 3
+  (its positions route).  The ranks' matrix-product FLOPs together are at
+  most 1.05 x one device's (they are equal: each rank computes its share).
+* Reduced jamba (the first two layers of its period: Mamba, SwiGLU, MoE)
+  traced on a fake (2, 2, 2) mesh with 2 rows a microbatch, which pod x data (4) does not divide: its rows split
+  over "data" alone, each rank routing the MoE groups its rows hold.
 * Adafactor on a (1, 4) fake mesh with 6 layers, more than the "model"
   ranks: no all-gather in the op table is larger than one layer's largest
   parameter in float32 (the update runs layer by layer on local shards).
@@ -28,6 +32,7 @@ import pytest
 import torch
 import torch.distributed as dist
 from test_torch_dist import run_ranks
+from test_torch_archs_cuda import kinds_kept
 from test_torch_dryrun import TINY, _matmul_flops
 from test_torch_train_dist import SHARDED_TOL, TRAIN
 from torch.distributed.device_mesh import DeviceMesh
@@ -41,9 +46,12 @@ from repro_torch.launch import train as launcher
 from repro_torch.models.convert import state_to_numpy
 from repro_torch.tree import flatten_with_names
 
-ROUTES = {  # reduced SmolLM, one layer: heads "model" divides, and not
-    "heads": dict(n_layers=1),
-    "positions": dict(n_layers=1, n_heads=3, n_kv_heads=1),
+MLA_MOE = dict(n_layers=1, scan_period=1, layer_pattern=(("mla", "moe"),))
+ROUTES = {  # arch, reduced to one layer: heads "model" divides, and not
+    "heads": ("smollm-135m", dict(n_layers=1)),
+    "positions": ("smollm-135m", dict(n_layers=1, n_heads=3, n_kv_heads=1)),
+    "mla_moe_heads": ("deepseek-v2-lite-16b", MLA_MOE),
+    "mla_moe_positions": ("deepseek-v2-lite-16b", dict(MLA_MOE, n_heads=3, n_kv_heads=3)),
 }
 
 
@@ -64,7 +72,8 @@ def fake_world(monkeypatch):
 @pytest.mark.parametrize("route", list(ROUTES))
 @pytest.mark.parametrize("mesh_shape", [(2, 4), (2, 2, 2)])
 def test_each_rank_computes_its_share(fake_world, mesh_shape, route, mb):
-    cfg = get_config("smollm-135m").reduced(**ROUTES[route])
+    arch, overrides = ROUTES[route]
+    cfg = get_config(arch).reduced(**overrides)
     one = dryrun.lower_step(cfg, "tiny_train", None, mb, device="cpu")
     n = math.prod(mesh_shape)
     fake_world(n)
@@ -74,6 +83,19 @@ def test_each_rank_computes_its_share(fake_world, mesh_shape, route, mb):
     assert _matmul_flops(one) > 0
     assert n * _matmul_flops(trace) <= 1.05 * _matmul_flops(one)
     assert trace.costs["collective_bytes"] > 0
+
+
+def test_jamba_traces_with_rows_that_pod_and_data_do_not_divide(fake_world):
+    # the first two layers of jamba's period: (mamba, swiglu), (mamba, moe)
+    cfg = kinds_kept("jamba-1.5-large-398b", n_layers=2, scan_period=2,
+                     layer_pattern=get_config("jamba-1.5-large-398b").layer_pattern[:2])
+    fake_world(8)
+    mesh = DeviceMesh("cpu", torch.arange(8).reshape(2, 2, 2), mesh_dim_names=_names((2, 2, 2)))
+    trace = dryrun.lower_step(cfg, "tiny_train", mesh, 4, device="cpu")  # 2 rows a microbatch
+    ops = trace.counter.table
+    assert ops["repro_torch.mamba_scan"]["calls"] > 0
+    assert ops["repro_torch.mamba_scan_backward"]["calls"] > 0
+    assert _matmul_flops(trace) > 0 and trace.costs["collective_bytes"] > 0
 
 
 def test_adafactor_gathers_no_stacked_group(fake_world, monkeypatch):

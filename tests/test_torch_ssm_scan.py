@@ -155,17 +155,21 @@ def _op_vs_lax_scan(kind, arrays, dtype, seed):
         close(t.grad, g, f"gradient of input {i}")
 
 
-@pytest.mark.parametrize("b,s,e,n", [(2, 1, 24, 8), (2, 37, 24, 16)])
+@pytest.mark.parametrize("b,s,e,n", [(2, 1, 24, 8), (2, 37, 24, 16), (2, 37, 24, 4),
+                                     (2, 9, 24, 12)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mamba_op_equals_lax_scan(b, s, e, n, dtype):
     """A carried state; S = 1 (a decode step) and S over one backward chunk
-    of the kernel; the gradients through the op's CPU backward."""
+    of the kernel; the gradients through the op's CPU backward.  N 4 and 12
+    are sizes the kernel is not built for (padded on the card)."""
     _op_vs_lax_scan("mamba", mamba_inputs(b, s, e, n, s + n), dtype, seed=s)
 
 
-@pytest.mark.parametrize("b,s,h,hd", [(2, 1, 3, 32), (2, 37, 2, 64)])
+@pytest.mark.parametrize("b,s,h,hd", [(2, 1, 3, 32), (2, 37, 2, 64), (2, 37, 2, 16),
+                                     (2, 9, 1, 48)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rwkv6_op_equals_lax_scan(b, s, h, hd, dtype):
+    """As the Mamba op's; hd 16 and 48 are not built (padded on the card)."""
     _op_vs_lax_scan("rwkv6", rwkv_inputs(b, s, h, hd, s + hd), dtype, seed=s)
 
 
@@ -293,17 +297,25 @@ def test_fake_shapes_and_flop_formulas():
 
 
 def test_ops_refuse_what_the_kernels_do_not_take():
+    """Shapes, dtypes and layouts the ops refuse; a state size and a head
+    size that no kernel is built for (6, 24) are taken, as the reference
+    takes them, and equal its ``lax.scan``."""
     m = [torch.from_numpy(a) for a in mamba_inputs(1, 3, 8, 8, 0)]
-    with pytest.raises(ValueError, match="state size"):
-        ssm_scan.MAMBA_OP(m[0][..., :6].contiguous(), m[1], m[2][..., :6].contiguous(),
-                          m[3][..., :6].contiguous(), m[4], m[5][:, :6].contiguous())
+    six = [m[0][..., :6], m[1], m[2][..., :6], m[3][..., :6], m[4], m[5][:, :6]]
+    y, h = ssm_scan.MAMBA_OP(*(t.contiguous() for t in six))
+    want_y, want_h = jax_mamba(*(jnp.asarray(t.numpy()) for t in six))
+    close(y, want_y, "y at N = 6")
+    close(h, want_h, "state at N = 6")
     with pytest.raises(ValueError, match="C must be"):
         ssm_scan.MAMBA_OP(*m[:3], m[3][:, :2].contiguous(), *m[4:])
     with pytest.raises(ValueError, match="float32"):
         ssm_scan.MAMBA_OP(m[0].to(torch.bfloat16), *m[1:])
     r = [torch.from_numpy(a) for a in rwkv_inputs(1, 3, 2, 32, 0)]
-    with pytest.raises(ValueError, match="head_dim"):
-        ssm_scan.RWKV_OP(*[torch.from_numpy(a) for a in rwkv_inputs(1, 3, 2, 24, 0)])
+    r24 = rwkv_inputs(1, 3, 2, 24, 0)
+    y, st = ssm_scan.RWKV_OP(*(torch.from_numpy(a) for a in r24))
+    want_y, want_s = jax_rwkv6(*(jnp.asarray(a) for a in r24))
+    close(y, want_y, "y at hd = 24")
+    close(st, want_s, "state at hd = 24")
     with pytest.raises(ValueError, match="contiguous"):
         ssm_scan.RWKV_OP(r[0], r[1].transpose(1, 2).contiguous().transpose(1, 2), *r[2:])
     with pytest.raises(ValueError, match="the stream"):

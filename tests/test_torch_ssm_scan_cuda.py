@@ -76,6 +76,8 @@ MAMBA_CASES = [  # b, s, e, n
     (2, 100, 200, 16),  # S not a multiple of the tiles, E not of the block
     (1, 257, 128, 8),
     (3, 33, 300, 8),
+    (2, 40, 96, 4),     # N not built: padded to 8
+    (1, 70, 160, 12),   # padded to 16
 ]
 
 
@@ -104,6 +106,8 @@ RWKV_CASES = [  # b, s, h, hd
     (2, 100, 3, 64),  # S not a multiple of the tile or the chunk
     (1, 50, 4, 32),
     (3, 17, 2, 32),
+    (2, 40, 2, 16),   # hd not built: padded to 32
+    (1, 21, 3, 48),   # padded to 64
 ]
 
 
@@ -142,9 +146,8 @@ def test_autograd_runs_the_backward_kernels(cuda):
 
 def test_the_kernels_refuse_what_they_do_not_take(cuda):
     h0, dt, bm, cm, x, a = _mamba_inputs(cuda, 1, 4, 32, 16, torch.float32)
-    with pytest.raises(ValueError, match="state size"):
-        ssm_scan.MAMBA_OP(h0[..., :12].contiguous(), dt, bm[..., :12].contiguous(),
-                          cm[..., :12].contiguous(), x, a[:, :12].contiguous())
+    with pytest.raises(ValueError, match="state size: the kernel takes at most 16"):
+        ssm_scan.MAMBA_OP(*_mamba_inputs(cuda, 1, 4, 32, 20, torch.float32))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ssm_scan.MAMBA_OP(h0, dt.half(), bm.half(), cm.half(), x.half(), a)
     with pytest.raises(ValueError, match="on cpu"):
@@ -152,5 +155,5 @@ def test_the_kernels_refuse_what_they_do_not_take(cuda):
     s0, r, k, v, w, u = _rwkv_inputs(cuda, 1, 4, 2, 64, torch.float32)
     with pytest.raises(ValueError, match="contiguous"):
         ssm_scan.RWKV_OP(s0, r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u)
-    with pytest.raises(ValueError, match="head_dim"):
+    with pytest.raises(ValueError, match="head_dim: the kernel takes at most 64"):
         ssm_scan.RWKV_OP(*_rwkv_inputs(cuda, 1, 4, 1, 128, torch.float32))
