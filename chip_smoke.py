@@ -171,7 +171,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      (24 layers x (the prefill + 63 steps)), a profiled prefill's device
      launches of the kernel (24), every call of the run held against the
      plain version, one pass of them timed (kernel, plain, profiler,
-     bound) and the backward kernel timed on the largest (its prefill ms
+     bound), a decode call's host breakdown (``scan_breakdown``: the op
+     beside the direct launch, and each part of it) and the backward
+     kernel timed on the largest (its prefill ms
      and decode tok/s from a second, unrecorded run: recording slows the
      run it records); then
      jamba-1.5-large-398b at its published widths cut to layers 0 and 4
@@ -1240,6 +1242,8 @@ CTYPES_PARAMS = {
     "fused_search_launch": "ppppppp" "iiiiii" "ppppppp",
     "decode_attention_f32": "pppp" "iiiii" "f" "ii" "pp",
     "decode_attention_bf16": "pppp" "iiiii" "f" "ii" "pp",
+    **{f"{op}_{t}": "pppppp" "iiii" "pp" for op in ("mamba_scan", "rwkv6_wkv")
+       for t in ("f32", "bf16")},
 }
 
 
@@ -4274,8 +4278,10 @@ class ScanRecorder:
 
 def scan_random_cases():
     """(label, name, inputs on the card) of (a): seeded shapes at both
-    stream dtypes: S = 1, S past the kernels' time tiles and chunks and not
-    a multiple of them, a carried state, E not a multiple of a block, and
+    stream dtypes: S = 1, S one below and above the kernels' forward tiles
+    (RWKV-6 32 steps, Mamba 16) and backward chunks (8) and past the
+    backward's ring, a carried state, E off the blocks (forward 128
+    channels, backward 64), B x H below and above the card's 132 SMs, and
     state and head sizes no kernel is built for (N 4, 12; hd 16, 48: the
     padded route of ``kernels/ssm_scan.py``)."""
     import torch
@@ -4289,13 +4295,17 @@ def scan_random_cases():
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).removeprefix("torch.")
         for b, s, e, n in ((2, 1, 256, 16), (2, 100, 200, 16), (1, 257, 384, 8), (3, 33, 96, 8),
-                           (2, 40, 96, 4), (1, 70, 160, 12)):  # N 4, 12: padded
+                           (2, 40, 96, 4), (1, 70, 160, 12),  # N 4, 12: padded
+                           (1, 7, 100, 16), (2, 9, 130, 8), (1, 15, 64, 16), (1, 17, 65, 8),
+                           (1, 33, 129, 16)):
             dt = (t((b, s, e), 0.1).abs() + 0.001).to(dtype)
             args = (t((b, e, n)), dt, t((b, s, n)).to(dtype), t((b, s, n)).to(dtype),
                     t((b, s, e)).to(dtype), -(t((e, n)).abs() + 0.1))
             cases.append((f"mamba B={b} S={s} E={e} N={n} {dn}", "mamba_scan", args))
         for b, s, h, hd in ((2, 1, 4, 64), (2, 100, 3, 64), (1, 70, 4, 32), (3, 17, 2, 32),
-                            (2, 40, 2, 16), (1, 21, 3, 48)):  # hd 16, 48: padded
+                            (2, 40, 2, 16), (1, 21, 3, 48),  # hd 16, 48: padded
+                            (1, 7, 2, 64), (1, 9, 3, 32), (1, 31, 2, 64), (2, 33, 1, 32),
+                            (3, 41, 2, 64), (4, 20, 40, 64)):
             args = (t((b, h, hd, hd)), *(t((b, s, h, hd), 0.5).to(dtype) for _ in range(3)),
                     torch.exp(-torch.exp(t((b, s, h, hd), 0.5) - 2.0)), t((h, hd), 0.5))
             cases.append((f"rwkv6 B={b} S={s} H={h} hd={hd} {dn}", "rwkv6_wkv", args))
@@ -4321,6 +4331,39 @@ def check_scan(name: str, args) -> dict:
         raise AssertionError(f"{name}: two backward calls on the same inputs differ")
     return {"forward_max_abs_err": fwd[0], "forward_max_rel_err": fwd[1],
             "backward_max_abs_err": bwd[0], "backward_max_rel_err": bwd[1]}
+
+
+@timed
+def scan_breakdown(name: str, args) -> dict:
+    """``host_breakdown`` of one forward call of a scan op on ``args`` (a
+    decode step's): the whole call (the registered op) beside the direct
+    launch, and each part of the launch on its own."""
+    import torch
+
+    ss = module("ssm_scan")
+    dev = args[1].device
+    f32 = torch.float32
+    if name == "mamba_scan":
+        h0, dt, bm, cm, x, a = args
+        b, s, e = x.shape
+        out_shapes, sizes = ((b, s, e), (b, e, h0.shape[2])), (b, s, e, h0.shape[2])
+        entry, check, launch = ss._MAMBA[x.dtype], ss._check_mamba, ss._mamba_launch
+    else:
+        s0, r, k, v, w, u = args
+        b, s, h, hd = r.shape
+        out_shapes, sizes = ((b, s, h, hd), (b, h, hd, hd)), (b, s, h, hd)
+        entry, check, launch = ss._RWKV[r.dtype], ss._check_rwkv, ss._rwkv_launch
+    outs = [torch.empty(sh, dtype=f32, device=dev) for sh in out_shapes]
+    c_args = (*(t.data_ptr() for t in args), *sizes, *(o.data_ptr() for o in outs))
+    rec = {"shapes": [list(t.shape) for t in args]}
+    rec.update(host_breakdown(
+        f"{name} at {rec['shapes'][1]}", entry, dev.index, c_args,
+        {"checks": lambda: check(*args),
+         "allocation": lambda: [torch.empty(sh, dtype=f32, device=dev) for sh in out_shapes],
+         "pointers": lambda: [t.data_ptr() for t in (*args, *outs)]},
+        {"whole_call_us": lambda: scan_op(name, False)(*args),
+         "direct_launch_us": lambda: launch(*args)}))
+    return rec
 
 
 def scan_calls_line(name: str, calls: list, random: dict) -> dict:
@@ -4364,6 +4407,9 @@ def scan_calls_line(name: str, calls: list, random: dict) -> dict:
         bound_ms=sum(by.values()), bound_by=max(by, key=by.get), calls=len(calls),
         max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
         random=random)
+    decode = [a for *_x, a, _o in calls if a[1].shape[1] == 1]
+    if decode:
+        line["host_breakdown"] = scan_breakdown(name, decode[-1])
     return line
 
 

@@ -56,9 +56,15 @@ columns of y are cut.  The gradients of the padded entries are dropped.
 Above the largest size built the CUDA launch raises, naming it.
 
 ``LAUNCHES`` counts op calls that launched a kernel, by op (one per call;
-the backward's second pass is part of its call).
+the backward's second pass is part of its call).  :func:`launch_plan` is
+the launches' arithmetic in one place: each kernel's grid, threads and
+shared memory (as the sources compute them) and the workspace each
+backward launch allocates.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 from torch.distributed.tensor import Partial, Replicate, Shard
@@ -78,9 +84,16 @@ _RWKV_BWD = {dt: Entry(_RWKV_SOURCE, f"rwkv6_wkv_bwd_{s}") for dt, s in _SUFFIX.
 
 MAMBA_STATES = (8, 16)  # the state sizes N the Mamba kernel is built for (others padded)
 RWKV_HEAD_DIMS = (32, 64)  # the head sizes the RWKV-6 kernel is built for (others padded)
-MAMBA_BLOCK = 128  # channels a Mamba block (kThreads in the source)
-MAMBA_CHUNK = 32  # steps between the Mamba backward's kept states (kChunk)
-RWKV_CHUNK = 16  # steps between the RWKV-6 backward's kept states (kChunk)
+# the sources' constants (csrc/mamba_scan.cu, csrc/rwkv6_wkv.cu), mirrored by launch_plan
+MAMBA_FWD_BLOCK = 128  # channels a Mamba forward block (kFwdThreads)
+MAMBA_FWD_TILE = 16  # steps a Mamba forward block stages at once (kFwdTile)
+MAMBA_FWD_STAGES = 3  # tiles in its ring (kFwdStages)
+MAMBA_BLOCK = 64  # channels a Mamba backward block, 4 threads each (kBwdChannels)
+MAMBA_CHUNK = 8  # steps between the Mamba backward's kept states (kChunk)
+RWKV_TILE = 32  # steps the RWKV-6 forward stages at once (kFwdTile)
+RWKV_CHUNK = 8  # steps between the RWKV-6 backward's kept states (kChunk)
+STAGES = 4  # the backward kernels' ring of staged chunks (kStages)
+SMEM_LIMIT = 232_448  # the dynamic shared memory an H100 block may have
 
 LAUNCHES = dict.fromkeys(
     ("mamba_scan", "mamba_scan_backward", "rwkv6_wkv", "rwkv6_wkv_backward"), 0)
@@ -167,6 +180,15 @@ def _same(what: str, tensors: dict, dtype=None) -> None:
             raise ValueError(f"{what}: {name} is on {t.device}, not {dev}")
 
 
+def _fits(dtype, streamed, floats) -> bool:
+    """Every tensor contiguous and on the first one's device, the streamed
+    ones of ``dtype`` and the others float32: the calls that pass, tested
+    with plain attribute compares (a decode step is host-bound)."""
+    dev = streamed[0].device
+    return (all(t.dtype is dtype and t.is_contiguous() and t.device == dev for t in streamed)
+            and all(t.dtype is _F32 and t.is_contiguous() and t.device == dev for t in floats))
+
+
 def _check_mamba(h0, dt, bm, cm, x, a) -> tuple[int, int, int, int]:
     """What the Mamba kernel takes; returns (B, S, E, N)."""
     if x.dim() != 3 or h0.dim() != 3:
@@ -174,19 +196,22 @@ def _check_mamba(h0, dt, bm, cm, x, a) -> tuple[int, int, int, int]:
                          f"{tuple(x.shape)} and {tuple(h0.shape)}")
     b, s, e = x.shape
     n = h0.shape[2]
-    want = {"h0": (b, e, n), "dt": (b, s, e), "B": (b, s, n), "C": (b, s, n), "a": (e, n)}
-    for name, t in (("h0", h0), ("dt", dt), ("B", bm), ("C", cm), ("a", a)):
-        if tuple(t.shape) != want[name]:
-            raise ValueError(f"mamba_scan: {name} must be {want[name]}, got {tuple(t.shape)}")
+    if not (dt.shape == x.shape and bm.shape == (b, s, n) and cm.shape == (b, s, n)
+            and h0.shape == (b, e, n) and a.shape == (e, n)):
+        want = {"h0": (b, e, n), "dt": (b, s, e), "B": (b, s, n), "C": (b, s, n), "a": (e, n)}
+        for name, t in (("h0", h0), ("dt", dt), ("B", bm), ("C", cm), ("a", a)):
+            if tuple(t.shape) != want[name]:
+                raise ValueError(f"mamba_scan: {name} must be {want[name]}, got {tuple(t.shape)}")
     if n < 1:
         raise ValueError("mamba_scan: needs a state size of at least 1")
     if s < 1:
         raise ValueError("mamba_scan: needs at least one step")
     if x.dtype not in _SUFFIX:
         raise ValueError(f"mamba_scan: the stream must be float32 or bfloat16, got {x.dtype}")
-    _same("mamba_scan", {"x": x, "dt": dt, "B": bm, "C": cm}, x.dtype)
-    _same("mamba_scan", {"x": x, "h0": h0, "a": a}, None)
-    _same("mamba_scan", {"h0": h0, "a": a}, _F32)
+    if not _fits(x.dtype, (x, dt, bm, cm), (h0, a)):
+        _same("mamba_scan", {"x": x, "dt": dt, "B": bm, "C": cm}, x.dtype)
+        _same("mamba_scan", {"x": x, "h0": h0, "a": a}, None)
+        _same("mamba_scan", {"h0": h0, "a": a}, _F32)
     return b, s, e, n
 
 
@@ -194,21 +219,24 @@ def _check_rwkv(s0, r, k, v, w, u) -> tuple[int, int, int, int]:
     """What the RWKV-6 kernel takes; returns (B, S, H, hd)."""
     if r.dim() != 4:
         raise ValueError(f"rwkv6_wkv: want r [B, S, H, hd], got {tuple(r.shape)}")
-    b, s, h, hd = r.shape
-    want = {"s0": (b, h, hd, hd), "k": (b, s, h, hd), "v": (b, s, h, hd),
-            "w": (b, s, h, hd), "u": (h, hd)}
-    for name, t in (("s0", s0), ("k", k), ("v", v), ("w", w), ("u", u)):
-        if tuple(t.shape) != want[name]:
-            raise ValueError(f"rwkv6_wkv: {name} must be {want[name]}, got {tuple(t.shape)}")
+    b, s, h, hd = shape = r.shape
+    if not (k.shape == shape and v.shape == shape and w.shape == shape
+            and s0.shape == (b, h, hd, hd) and u.shape == (h, hd)):
+        want = {"s0": (b, h, hd, hd), "k": (b, s, h, hd), "v": (b, s, h, hd),
+                "w": (b, s, h, hd), "u": (h, hd)}
+        for name, t in (("s0", s0), ("k", k), ("v", v), ("w", w), ("u", u)):
+            if tuple(t.shape) != want[name]:
+                raise ValueError(f"rwkv6_wkv: {name} must be {want[name]}, got {tuple(t.shape)}")
     if hd < 1:
         raise ValueError("rwkv6_wkv: needs a head_dim of at least 1")
     if s < 1:
         raise ValueError("rwkv6_wkv: needs at least one step")
     if r.dtype not in _SUFFIX:
         raise ValueError(f"rwkv6_wkv: the stream must be float32 or bfloat16, got {r.dtype}")
-    _same("rwkv6_wkv", {"r": r, "k": k, "v": v}, r.dtype)
-    _same("rwkv6_wkv", {"r": r, "s0": s0, "w": w, "u": u}, None)
-    _same("rwkv6_wkv", {"s0": s0, "w": w, "u": u}, _F32)
+    if not _fits(r.dtype, (r, k, v), (s0, w, u)):
+        _same("rwkv6_wkv", {"r": r, "k": k, "v": v}, r.dtype)
+        _same("rwkv6_wkv", {"r": r, "s0": s0, "w": w, "u": u}, None)
+        _same("rwkv6_wkv", {"s0": s0, "w": w, "u": u}, _F32)
     return b, s, h, hd
 
 
@@ -250,16 +278,77 @@ def _cut(t, n: int, dims=(-1,)):
     return t[tuple(index)].contiguous()
 
 
+def _aligned(t):
+    """``t``, or a copy of it where it does not start on 16 bytes (the
+    kernels read the states as float4s)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+class Plan(NamedTuple):
+    """One call's launches, as the sources compute them: each kernel's grid
+    (x, y), threads a block and shared memory a block in bytes, and the
+    workspace the backward launch allocates (name -> shape)."""
+
+    fwd_grid: tuple[int, int]
+    fwd_threads: int
+    fwd_smem: int
+    bwd_grid: tuple[int, int]
+    bwd_threads: int
+    bwd_smem: int
+    workspace: dict
+
+
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+@functools.lru_cache(maxsize=512)
+def launch_plan(kind: str, b: int, s: int, width: int, size: int, itemsize: int) -> Plan:
+    """The launches of one call at a built size: ``kind`` ``"mamba"`` (width
+    E, size N) or ``"rwkv6"`` (width H, size hd), for B rows of S steps in a
+    stream of ``itemsize``-byte values (4 float32, 2 bfloat16)."""
+    if kind == "mamba":
+        e, n = width, size
+        nblk, nchunk = -(-e // MAMBA_BLOCK), -(-s // MAMBA_CHUNK)
+        chunk = MAMBA_CHUNK * MAMBA_BLOCK  # a chunk's values of one array
+        slot = _up16((2 * chunk + 2 * MAMBA_CHUNK * n) * itemsize + chunk * 4)
+        warps = MAMBA_BLOCK * 4 // 32
+        tile = MAMBA_FWD_TILE * MAMBA_FWD_BLOCK
+        return Plan((-(-e // MAMBA_FWD_BLOCK), b), MAMBA_FWD_BLOCK,
+                    MAMBA_FWD_STAGES * (2 * tile + 2 * MAMBA_FWD_TILE * n) * itemsize
+                    + MAMBA_FWD_TILE * 2 * n * 4,
+                    (nblk, b), MAMBA_BLOCK * 4,
+                    STAGES * slot
+                    + (10 * chunk + MAMBA_CHUNK * 2 * n * (1 + warps)) * 4,
+                    {"part_bc": (b, s, nblk, 2 * n), "part_a": (b, e, n),
+                     "ckpt": (b, nchunk, e, n)})
+    if kind != "rwkv6":
+        raise ValueError(f"launch_plan: no kernel {kind!r}")
+    h, hd = width, size
+    nchunk = -(-s // RWKV_CHUNK)
+    tile, chunk, row = RWKV_TILE * hd, RWKV_CHUNK * hd, hd + (hd // 32) * 4
+    warps = hd // 8
+    return Plan((b * h, 1), hd * hd // 32,
+                2 * tile * (3 * itemsize + 4) + (4 * RWKV_TILE * row + RWKV_TILE) * 4,
+                (b * h, 1), 32 * warps,
+                STAGES * (chunk * (3 * itemsize + 8) + hd * hd * 4)
+                + (RWKV_CHUNK * warps * hd + RWKV_CHUNK * warps + 3 * chunk) * 4,
+                {"part_u": (b, h, hd), "ckpt": (b, h, nchunk, hd, hd)})
+
+
 def _mamba_launch(h0, dt, bm, cm, x, a):
     b, s, e, n = _check_mamba(h0, dt, bm, cm, x, a)
     nk = _built("mamba_scan: the state size", n, MAMBA_STATES)
-    h0, bm, cm, a = (_pad(t, nk) for t in (h0, bm, cm, a))
-    y, h_last = _empty((b, s, e), _F32, x), _empty((b, e, nk), _F32, x)
-    _MAMBA[x.dtype](x.device.index, h0.data_ptr(), dt.data_ptr(), bm.data_ptr(),
-                    cm.data_ptr(), x.data_ptr(), a.data_ptr(), b, s, e, nk, y.data_ptr(),
-                    h_last.data_ptr())
+    if nk != n:
+        h0, bm, cm, a = (_pad(t, nk) for t in (h0, bm, cm, a))
+    h0, a = _aligned(h0), _aligned(a)
+    dev = x.device
+    y = torch.empty((b, s, e), dtype=_F32, device=dev)
+    h_last = torch.empty((b, e, nk), dtype=_F32, device=dev)
+    _MAMBA[x.dtype](dev.index, h0.data_ptr(), dt.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+                    x.data_ptr(), a.data_ptr(), b, s, e, nk, y.data_ptr(), h_last.data_ptr())
     LAUNCHES["mamba_scan"] += 1
-    return y, _cut(h_last, n)
+    return y, (h_last if nk == n else _cut(h_last, n))
 
 
 def _mamba_cpu(h0, dt, bm, cm, x, a):
@@ -278,15 +367,13 @@ def _mamba_bwd_check(gy, gh, h0, dt, bm, cm, x, a):
 def _mamba_bwd_launch(gy, gh, h0, dt, bm, cm, x, a):
     b, s, e, n = _mamba_bwd_check(gy, gh, h0, dt, bm, cm, x, a)
     nk = _built("mamba_scan_backward: the state size", n, MAMBA_STATES)
-    gh, h0, bm, cm, a = (_pad(t, nk) for t in (gh, h0, bm, cm, a))
-    nblk = -(-e // MAMBA_BLOCK)
-    nchunk = -(-s // MAMBA_CHUNK)
+    if nk != n:
+        gh, h0, bm, cm, a = (_pad(t, nk) for t in (gh, h0, bm, cm, a))
+    ws = launch_plan("mamba", b, s, e, nk, x.element_size()).workspace
     dh0 = _empty((b, e, nk), _F32, x)
     ddt, dx = torch.empty_like(dt), torch.empty_like(x)
     dbc, da = _empty((b, s, 2 * nk), _F32, x), _empty((e, nk), _F32, x)
-    part_bc = _empty((b, s, nblk, 2 * nk), _F32, x)
-    part_a = _empty((b, e, nk), _F32, x)
-    ckpt = _empty((b, nchunk, e, nk), _F32, x)
+    part_bc, part_a, ckpt = (_empty(ws[k], _F32, x) for k in ("part_bc", "part_a", "ckpt"))
     _MAMBA_BWD[x.dtype](x.device.index, gy.data_ptr(), gh.data_ptr(), h0.data_ptr(),
                         dt.data_ptr(), bm.data_ptr(), cm.data_ptr(), x.data_ptr(),
                         a.data_ptr(), b, s, e, nk, dh0.data_ptr(), ddt.data_ptr(),
@@ -306,12 +393,18 @@ def _mamba_bwd_cpu(gy, gh, h0, dt, bm, cm, x, a):
 def _rwkv_launch(s0, r, k, v, w, u):
     b, s, h, hd = _check_rwkv(s0, r, k, v, w, u)
     hk = _built("rwkv6_wkv: head_dim", hd, RWKV_HEAD_DIMS)
-    s0 = _pad(s0, hk, (-1, -2))
-    r, k, v, w, u = (_pad(t, hk) for t in (r, k, v, w, u))
-    y, s_last = _empty((b, s, h, hk), _F32, r), _empty((b, h, hk, hk), _F32, r)
-    _RWKV[r.dtype](r.device.index, s0.data_ptr(), r.data_ptr(), k.data_ptr(), v.data_ptr(),
+    if hk != hd:
+        s0 = _pad(s0, hk, (-1, -2))
+        r, k, v, w, u = (_pad(t, hk) for t in (r, k, v, w, u))
+    s0 = _aligned(s0)
+    dev = r.device
+    y = torch.empty((b, s, h, hk), dtype=_F32, device=dev)
+    s_last = torch.empty((b, h, hk, hk), dtype=_F32, device=dev)
+    _RWKV[r.dtype](dev.index, s0.data_ptr(), r.data_ptr(), k.data_ptr(), v.data_ptr(),
                    w.data_ptr(), u.data_ptr(), b, s, h, hk, y.data_ptr(), s_last.data_ptr())
     LAUNCHES["rwkv6_wkv"] += 1
+    if hk == hd:
+        return y, s_last
     return _cut(y, hd), _cut(s_last, hd, (-1, -2))
 
 
@@ -331,14 +424,15 @@ def _rwkv_bwd_check(gy, gs, s0, r, k, v, w, u):
 def _rwkv_bwd_launch(gy, gs, s0, r, k, v, w, u):
     b, s, h, hd = _rwkv_bwd_check(gy, gs, s0, r, k, v, w, u)
     hk = _built("rwkv6_wkv_backward: head_dim", hd, RWKV_HEAD_DIMS)
-    gs, s0 = (_pad(t, hk, (-1, -2)) for t in (gs, s0))
-    gy, r, k, v, w, u = (_pad(t, hk) for t in (gy, r, k, v, w, u))
-    nchunk = -(-s // RWKV_CHUNK)
+    if hk != hd:
+        gs, s0 = (_pad(t, hk, (-1, -2)) for t in (gs, s0))
+        gy, r, k, v, w, u = (_pad(t, hk) for t in (gy, r, k, v, w, u))
+    gs, s0 = _aligned(gs), _aligned(s0)
+    ws = launch_plan("rwkv6", b, s, h, hk, r.element_size()).workspace
     ds0 = _empty((b, h, hk, hk), _F32, r)
     dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
     dw, du = _empty((b, s, h, hk), _F32, r), _empty((h, hk), _F32, r)
-    part_u = _empty((b, h, hk), _F32, r)
-    ckpt = _empty((b, h, nchunk, hk, hk), _F32, r)
+    part_u, ckpt = _empty(ws["part_u"], _F32, r), _empty(ws["ckpt"], _F32, r)
     _RWKV_BWD[r.dtype](r.device.index, gy.data_ptr(), gs.data_ptr(), s0.data_ptr(),
                        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
                        b, s, h, hk, ds0.data_ptr(), dr.data_ptr(), dk.data_ptr(),

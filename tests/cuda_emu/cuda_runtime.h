@@ -1,0 +1,2 @@
+#pragma once
+#include "cuda_emu.h"

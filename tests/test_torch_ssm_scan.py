@@ -322,6 +322,75 @@ def test_ops_refuse_what_the_kernels_do_not_take():
         ssm_scan.RWKV_OP(r[0], *(t.half() for t in r[1:4]), *r[4:])
 
 
+PLAN_EDGES = {  # (B, S, E or H, N or hd) at the kernels' edges, sizes before padding
+    "mamba": [(1, 1, 1, 16), (2, 7, 64, 16), (2, 9, 65, 8), (1, 8, 127, 4), (3, 17, 129, 12),
+              (8, 1024, 16384, 16), (1, 15, 1, 8)],
+    "rwkv6": [(1, 1, 1, 64), (2, 7, 3, 32), (1, 9, 2, 16), (1, 15, 1, 48), (4, 17, 32, 64),
+              (8, 1024, 32, 64), (1, 16, 1, 24)],
+}
+
+
+@pytest.mark.parametrize("kind", sorted(PLAN_EDGES))
+def test_launch_plan_covers_every_index(kind):
+    """``launch_plan`` at the edges: the grids and chunks cover every
+    channel, head and step and no more than one block or chunk beyond, each
+    block's shared memory fits an H100 block, and the backward launch
+    allocates exactly the plan's workspace."""
+    built = ssm_scan.MAMBA_STATES if kind == "mamba" else ssm_scan.RWKV_HEAD_DIMS
+    for b, s, width, size in PLAN_EDGES[kind]:
+        nk = next(k for k in built if size <= k)
+        for itemsize in (4, 2):
+            p = ssm_scan.launch_plan(kind, b, s, width, nk, itemsize)
+            assert max(p.fwd_smem, p.bwd_smem) <= ssm_scan.SMEM_LIMIT, (kind, size, p)
+            ws = p.workspace
+            if kind == "mamba":
+                fwd, bwd = ssm_scan.MAMBA_FWD_BLOCK, ssm_scan.MAMBA_BLOCK
+                chunk = ssm_scan.MAMBA_CHUNK
+                assert p.fwd_grid[1] == p.bwd_grid[1] == b
+                assert (p.fwd_grid[0] - 1) * fwd < width <= p.fwd_grid[0] * fwd
+                assert (p.bwd_grid[0] - 1) * bwd < width <= p.bwd_grid[0] * bwd
+                assert p.bwd_threads == 4 * bwd  # 4 threads a channel
+                nchunk = ws["ckpt"][1]
+                assert ws == {"part_bc": (b, s, p.bwd_grid[0], 2 * nk), "part_a": (b, width, nk),
+                              "ckpt": (b, nchunk, width, nk)}
+            else:
+                chunk = ssm_scan.RWKV_CHUNK
+                assert p.fwd_grid == p.bwd_grid == (b * width, 1)
+                assert p.fwd_threads * 32 == nk * nk and p.bwd_threads == 4 * nk
+                nchunk = ws["ckpt"][2]
+                assert ws == {"part_u": (b, width, nk), "ckpt": (b, width, nchunk, nk, nk)}
+            assert (nchunk - 1) * chunk < s <= nchunk * chunk
+
+
+@pytest.mark.parametrize("kind", sorted(PLAN_EDGES))
+def test_backward_launch_allocates_the_plans_workspace(kind, monkeypatch):
+    """The backward launches (their CUDA path, run here on CPU tensors with
+    the kernel entry replaced) allocate the plan's workspace at the padded
+    size, and hand the kernel the built size."""
+    seen, calls = [], []
+    real = ssm_scan._empty
+    monkeypatch.setattr(ssm_scan, "_empty", lambda shape, dt, like: seen.append(tuple(shape))
+                        or real(shape, dt, like))
+    entries = ssm_scan._MAMBA_BWD if kind == "mamba" else ssm_scan._RWKV_BWD
+    for dt in list(entries):
+        monkeypatch.setitem(entries, dt, lambda index, *args: calls.append(args))
+    b, s, width, size = 2, 9, 65, 12
+    if kind == "mamba":
+        args = [torch.from_numpy(a) for a in mamba_inputs(b, s, width, size, 0)]
+        y = torch.zeros((b, s, width)), torch.zeros((b, width, size))
+        ssm_scan._mamba_bwd_launch(*y, *args)
+        nk, scalars = 16, calls[0][8:12]
+    else:
+        width = 3
+        args = [torch.from_numpy(a) for a in rwkv_inputs(b, s, width, size, 0)]
+        y = torch.zeros((b, s, width, size)), torch.zeros((b, width, size, size))
+        ssm_scan._rwkv_bwd_launch(*y, *args)
+        nk, scalars = 32, calls[0][8:12]
+    assert scalars == (b, s, width, nk)
+    plan = ssm_scan.launch_plan(kind, b, s, width, nk, 4)
+    assert seen[-len(plan.workspace):] == list(plan.workspace.values())
+
+
 MESH_CASES = {  # placements on mesh ("data", "model") of each op's inputs
     "mamba rows and channels": ("mamba", [
         [Shard(0), Shard(1)], [Shard(0), Shard(2)], [Shard(0), Replicate()],

@@ -12,13 +12,17 @@ plain versions, and take their exps with CUDA's expf); a gradient in
 bfloat16 within 1e-2 (two float32 values that close may round to
 neighbouring bfloat16 values, 2^-8 apart).  Two backward calls on the same
 inputs must give the same bits: the kernels add their cross-block sums in a
-fixed order.
+fixed order.  The cases sit at the kernels' edges: S one below and above
+the forward tiles (RWKV-6 16 steps, Mamba 8) and the backward chunks (8),
+E off the blocks (forward 128 channels, backward 64), B x H below and
+above the card's 132 SMs, every built size at both stream types, and the
+padded sizes.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ssm_scan
+from repro_torch.kernels import _build, ssm_scan
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -78,6 +82,10 @@ MAMBA_CASES = [  # b, s, e, n
     (3, 33, 300, 8),
     (2, 40, 96, 4),     # N not built: padded to 8
     (1, 70, 160, 12),   # padded to 16
+    (1, 7, 100, 16),    # S one below a tile and a chunk; E off both blocks
+    (2, 9, 130, 8),     # S one above; E one block and a bit
+    (1, 15, 64, 16),    # S one below two chunks; E one backward block
+    (1, 17, 65, 8),     # one above; E one past a backward block
 ]
 
 
@@ -108,6 +116,12 @@ RWKV_CASES = [  # b, s, h, hd
     (3, 17, 2, 32),
     (2, 40, 2, 16),   # hd not built: padded to 32
     (1, 21, 3, 48),   # padded to 64
+    (1, 7, 2, 64),    # S one below a backward chunk
+    (1, 9, 3, 32),    # one above
+    (1, 15, 2, 64),   # one below a forward tile
+    (2, 17, 1, 32),   # one above
+    (3, 33, 2, 64),   # past the backward's ring of 4 chunks
+    (4, 20, 40, 64),  # B x H 160: above the card's 132 SMs
 ]
 
 
@@ -157,3 +171,17 @@ def test_the_kernels_refuse_what_they_do_not_take(cuda):
         ssm_scan.RWKV_OP(s0, r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u)
     with pytest.raises(ValueError, match="head_dim: the kernel takes at most 64"):
         ssm_scan.RWKV_OP(*_rwkv_inputs(cuda, 1, 4, 1, 128, torch.float32))
+
+
+@pytest.mark.parametrize("kind,sizes", [("mamba", ssm_scan.MAMBA_STATES),
+                                        ("rwkv6", ssm_scan.RWKV_HEAD_DIMS)])
+def test_launch_plan_matches_the_sources(cuda, kind, sizes):
+    """launch_plan's shared memory is what each source computes for its
+    blocks, at every built size and stream type."""
+    mod = _build.load(ssm_scan._MAMBA_SOURCE if kind == "mamba" else ssm_scan._RWKV_SOURCE)
+    smem = mod.mamba_scan_smem if kind == "mamba" else mod.rwkv6_wkv_smem
+    for size in sizes:
+        for itemsize in (4, 2):
+            plan = ssm_scan.launch_plan(kind, 2, 33, 96, size, itemsize)
+            assert (smem(size, itemsize, 0), smem(size, itemsize, 1)) == (
+                plan.fwd_smem, plan.bwd_smem), (kind, size, itemsize)
